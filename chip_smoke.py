@@ -6,13 +6,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
   1. device: needs CUDA; prints the card's name and power limit.
-  2. K1 (csrc/preprocess_gray.cu) is built from the checkout and held
-     against its plain PyTorch version on the card at every canvas rung
-     S in {64..1024}, r=299, B in {16, 256}: f32 within 1e-5 before the
-     norm (1e-4 after it, std >= 0.161), bf16 equal to the kernel's f32
-     result rounded once to bf16. Per rung at B=256 it times the kernel, the plain
-     version and F.interpolate(bilinear, antialias) on full-canvas images
-     (a yardstick of the resize alone; the port never calls it).
+  2. K1 (csrc/preprocess_gray.cu) is built from the checkout (ptxas's
+     registers and shared memory printed per kernel) and held against its
+     plain PyTorch version on the card at every canvas rung S in
+     {64..1024}, r=299, B in {16, 256}: f32 within 1e-5 before the norm
+     (1e-4 after it, std >= 0.161), bf16 equal to the kernel's f32 result
+     rounded once to bf16, and the tap tables of its prologue equal to
+     their plain twin. A batch of sizes outside [0, S] (0, S, 2S, -3) runs
+     through K1 at every rung and must finish with finite output, and a
+     canvas its 16-byte loads cannot read (S not a multiple of 16, or data
+     not 16-byte aligned) must be refused. Per rung at B=256 it times the
+     kernel on uniform sizes (ms between events around calls enqueued as
+     the host makes them; beside it the device time alone, the calls queued
+     behind a device-side sleep, and the wrapper's host us per call; the
+     plain version and
+     F.interpolate(bilinear, antialias) on full-canvas images beside it: a
+     yardstick of the resize alone; the port never calls it), and again on
+     the main path's size mix (ROI sides drawn as phase 3 draws them, with
+     the share of (1,1) pad rows the engine's dispatch buckets leave).
   3. the main path: synthetic IFCB bins (a realistic ROI size mix over the
      64..1024 rungs, one bin of 1,500 ROIs) are classified by
      ``RUN --batch 256`` of the port's CLI with a random-init full-width
@@ -28,6 +39,7 @@ Weights and bins are made from fixed seeds; nothing is downloaded.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -48,6 +60,7 @@ BIN_SIZES = (1500, 700, 300, 24)   # ROIs per synthetic bin
 TOL_F32 = 1e-5
 TOL_F32_NORM = 1e-4
 TOL_CPU_SCORES = 1e-5
+SLEEP_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock per queued call
 
 
 def card_line():
@@ -58,19 +71,41 @@ def card_line():
     return out[0]
 
 
-def cuda_ms(fn, iters, warmup=2):
+def cuda_ms(fn, iters, warmup=2, queued=False):
+    """ms per call of fn between two events on the card. By default the
+    calls are enqueued as the host makes them, so a wrapper slower than its
+    kernels is timed at the host's rate. queued=True puts them behind a
+    device-side sleep, so the card runs them back to back: the device time
+    alone."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=50):
+    """Host microseconds per call of fn while the card is kept busy behind a
+    device-side sleep, so no call waits for it: the wrapper's own cost."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
 
 
 def make_canvas(B, S, rng, full=False):
@@ -108,20 +143,130 @@ def k1_bound(sizes, S, r, out_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_taps(sizes, s, S):
+    """K1's prologue on the card against its plain twin: equal tables (the
+    same float32 operations in the same order on both sides)."""
+    import torch
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        tap_tables_cuda, tap_tables_plain)
+    got = tap_tables_cuda(s, S, R)
+    ref = tap_tables_plain(torch.from_numpy(sizes), S, R)
+    torch.cuda.synchronize()
+    for name, g, want in zip(("lo", "n", "weights"), got, ref):
+        if not torch.equal(g.cpu(), want):
+            raise AssertionError(
+                f"K1 tap table {name} S={S}: max |d| "
+                f"{float((g.cpu().double() - want.double()).abs().max())}")
+
+
+def check_out_of_range(S, rng):
+    """Sizes outside [0, S]: outside the contract, but K1 must stay inside
+    its buffers (it clamps them) and finish with finite output."""
+    import torch
+    from ifcb_classifier_tpu_torch.ops.preprocess import preprocess_gray_cuda
+    sizes = np.array([(0, S), (S, 0), (2 * S, S), (S, 2 * S), (2 * S, 2 * S),
+                      (0, 0), (-3, S), (S, S)], np.int32)
+    canvas = rng.integers(0, 256, size=(len(sizes), S, S), dtype=np.uint8)
+    c = torch.from_numpy(canvas).cuda()
+    s = torch.from_numpy(sizes).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        out = preprocess_gray_cuda(c, s, out_size=R, mean=MEAN, std=STD,
+                                   dtype=dtype)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"K1 sizes outside [0, {S}]: non-finite "
+                                 f"output ({dtype})")
+
+
+def check_rejects(S):
+    """The wrapper refuses a canvas that its 16-byte loads cannot read: S
+    not a multiple of 16, or data not 16-byte aligned."""
+    import torch
+    from ifcb_classifier_tpu_torch.ops.preprocess import preprocess_gray_cuda
+    sizes = torch.ones((2, 2), dtype=torch.int32, device="cuda")
+    odd = torch.zeros((2, S - 8, S - 8), dtype=torch.uint8, device="cuda")
+    flat = torch.zeros(2 * S * S + 16, dtype=torch.uint8, device="cuda")
+    shifted = flat[8:8 + 2 * S * S].view(2, S, S)
+    before = preprocess_gray_cuda.launches
+    for bad in (odd, shifted):
+        try:
+            preprocess_gray_cuda(bad, sizes, out_size=R)
+        except ValueError:
+            continue
+        raise AssertionError(f"K1 accepted a canvas {tuple(bad.shape)} at "
+                             f"address {bad.data_ptr():#x}")
+    if preprocess_gray_cuda.launches != before:
+        raise AssertionError("K1 counted a launch it refused")
+
+
+def roi_sides(n, rng):
+    """IFCB-like ROI sides: log-normal (median ~48 px), so most land on the
+    64/128 rungs and a tail reaches 256..1024; none over 1024."""
+    sides = np.clip(np.round(rng.lognormal(np.log(48), 0.75, (n, 2))),
+                    8, 1024).astype(int)
+    if n >= 1000:  # make sure every rung is fed
+        sides[:4] = [(300, 200), (180, 450), (700, 90), (1000, 1024)]
+    return sides
+
+
+def main_path_mix(rng):
+    """{rung: (ROI sides landing there, share of pad rows)} for bins of
+    BIN_SIZES ROIs drawn as phase 3 draws them: the engine puts each ROI on
+    the rung that holds it and sends each bin's ROIs of a rung in chunks of
+    256, the last padded with (1,1) rows up to its dispatch bucket."""
+    from ifcb_classifier_tpu_torch.data.pipeline import ladder_size
+    from ifcb_classifier_tpu_torch.infer.runner import _batch_buckets
+    buckets = _batch_buckets(256)
+    pools = {S: [] for S in LADDER}
+    real = {S: 0 for S in LADDER}
+    sent = {S: 0 for S in LADDER}
+    for n in BIN_SIZES:
+        sides = roi_sides(n, rng)
+        rungs = np.array([ladder_size(int(max(h, w))) for h, w in sides])
+        for S in LADDER:
+            on = sides[rungs == S]
+            pools[S].extend(map(tuple, on))
+            full, rest = divmod(len(on), 256)
+            real[S] += len(on)
+            sent[S] += 256 * full + (min(b for b in buckets if b >= rest)
+                                     if rest else 0)
+    return {S: (np.array(pools[S], np.int32).reshape(-1, 2),
+                1.0 - real[S] / sent[S] if sent[S] else 1.0) for S in LADDER}
+
+
+def mix_canvas(B, S, pool, pad_share, rng):
+    """uint8 [B,S,S] + sizes: real rows drawn from the rung's pool, then
+    (1,1) pad rows in the engine's share."""
+    n_pad = int(round(B * pad_share))
+    sizes = np.ones((B, 2), np.int32)
+    sizes[:B - n_pad] = pool[rng.integers(0, len(pool), B - n_pad)]
+    canvas = np.zeros((B, S, S), np.uint8)
+    for b, (h, w) in enumerate(sizes):
+        canvas[b, :h, :w] = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
+    return canvas, sizes
+
+
 def check_k1(rng):
-    """Phase 2. Returns (per-rung timing rows, max f32 error)."""
+    """Phase 2. Returns (per-rung timing rows, main-path-mix rows, max f32
+    error)."""
     import torch
     import torch.nn.functional as F
     from ifcb_classifier_tpu_torch.ops.preprocess import (
-        preprocess_gray_cuda, preprocess_gray_plain)
+        k1_resize_shape, preprocess_gray_cuda, preprocess_gray_plain)
     dev = torch.device("cuda")
+    # own generators: phase 3's bins stay those of earlier runs
+    side_rng = np.random.default_rng(1)
+    mix = main_path_mix(side_rng)
     max_err = 0.0
-    rows = []
+    rows, mix_rows = [], []
     for S in LADDER:
+        check_out_of_range(S, side_rng)
+        check_rejects(S)
         for B in (16, 256):
             canvas, sizes = make_canvas(B, S, rng)
             c = torch.from_numpy(canvas).to(dev)
             s = torch.from_numpy(sizes).to(dev)
+            check_taps(sizes, s, S)
             for mean, std, tol in ((None, None, TOL_F32),
                                    (MEAN, STD, TOL_F32_NORM)):
                 ref = preprocess_gray_plain(c, s, out_size=R, mean=mean,
@@ -146,7 +291,8 @@ def check_k1(rng):
                         f"K1 bf16 S={S} B={B}: {n_diff} values differ from "
                         "the f32 result rounded to bf16")
             print(f"K1 check S={S} B={B}: ok (f32 max|err| with norm "
-                  f"{err:.3g})", flush=True)
+                  f"{err:.3g}; tap tables equal; sizes outside [0, S] "
+                  "finite; unaligned canvas refused)", flush=True)
         # timing at the main path's full batch, bf16 + norm
         B = 256
         kernel = lambda: preprocess_gray_cuda(c, s, out_size=R, mean=MEAN,
@@ -158,15 +304,52 @@ def check_k1(rng):
         lib = lambda: F.interpolate(xf, (R, R), mode="bilinear",
                                     antialias=True, align_corners=False)
         row = dict(S=S, B=B, ms=cuda_ms(kernel, 20),
-                   plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(lib, 10))
+                   device_ms=cuda_ms(kernel, 20, queued=True),
+                   host_us=host_us(kernel), plain_ms=cuda_ms(plain, 5),
+                   library_ms=cuda_ms(lib, 10))
         row["bound_ms"], row["bound_by"] = k1_bound(sizes, S, R, 2)
+        (row["smem"], row["per_sm"], row["grid"], row["threads"],
+         row["step"]) = k1_resize_shape(B, S, R)
         rows.append(row)
-        print("K1 time S={S} B={B} bf16: kernel {ms:.4f} ms, plain "
+        print("K1 time S={S} B={B} bf16: kernel {ms:.4f} ms (device "
+              "alone {device_ms:.4f} ms; wrapper host {host_us:.1f} us per "
+              "call), plain "
               "{plain_ms:.4f} ms, F.interpolate (resize only, full canvas) "
               "{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              "({bound_by})".format(**row), flush=True)
+              "({bound_by}); resize grid {grid} x {threads} threads, "
+              "{step} rows per item, {per_sm} blocks per SM, {smem} B shared "
+              "memory each".format(**row), flush=True)
+        pool, pad_share = mix[S]
+        mc, ms = mix_canvas(B, S, pool, pad_share, side_rng)
+        c, s = torch.from_numpy(mc).to(dev), torch.from_numpy(ms).to(dev)
+        mrow = dict(S=S, B=B, pad_share=pad_share, ms=cuda_ms(kernel, 20),
+                    device_ms=cuda_ms(kernel, 20, queued=True))
+        mrow["bound_ms"], mrow["bound_by"] = k1_bound(ms, S, R, 2)
+        mix_rows.append(mrow)
+        print("K1 time S={S} B={B} bf16, main-path size mix ({pad_share:.3f}"
+              " pad rows): kernel {ms:.4f} ms (device alone {device_ms:.4f}"
+              " ms), bound {bound_ms:.4f} ms "
+              "({bound_by})".format(**mrow), flush=True)
         del c, s, xf
-    return rows, max_err
+    return rows, mix_rows, max_err
+
+
+def ptxas_report(log):
+    """'ptxas <kernel>: <registers, static shared memory>' per compiled
+    kernel."""
+    lines, kernel = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+            rows = re.search(r"Li(\d+)E", name)
+            kernel = ("preprocess_gray_taps" if "taps" in name else
+                      "preprocess_gray_resize<{}, {} rows>".format(
+                          "bf16" if "bfloat16" in name else "f32",
+                          rows.group(1) if rows else "?")
+                      if "resize" in name else name)
+        elif "Used" in ln and "registers" in ln and kernel:
+            lines.append(f"ptxas {kernel}: {ln.split(':', 1)[-1].strip()}")
+    return lines
 
 
 def write_bin(dirpath, pid, rois):
@@ -188,14 +371,9 @@ def write_bin(dirpath, pid, rois):
 
 
 def make_rois(n, rng):
-    """IFCB-like ROI sizes: log-normal sides (median ~48 px), so most land
-    on the 64/128 rungs and a tail reaches 256..1024; none over 1024."""
-    sides = np.clip(np.round(rng.lognormal(np.log(48), 0.75, (n, 2))),
-                    8, 1024).astype(int)
-    if n >= 1000:  # make sure every rung is fed
-        sides[:4] = [(300, 200), (180, 450), (700, 90), (1000, 1024)]
+    """IFCB-like ROIs of roi_sides' sizes: a dark blob in noise."""
     rois = []
-    for h, w in sides:
+    for h, w in roi_sides(n, rng):
         yy, xx = np.mgrid[0:h, 0:w]
         blob = 200 - 120 * np.exp(-(((yy - h / 2) / (h / 4)) ** 2
                                     + ((xx - w / 2) / (w / 4)) ** 2))
@@ -274,12 +452,22 @@ def profile_breakdown(run, card):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     k1 = sum(v for k, v in by_name.items() if "preprocess_gray" in k)
+    k1_parts = {}
+    for e in kern:
+        for part in ("preprocess_gray_taps", "preprocess_gray_resize"):
+            if part in e.name:
+                k1_parts.setdefault(part, []).append(
+                    e.time_range.elapsed_us())
     print(f"profile (warm RUN under torch.profiler, wall {wall_s * 1e3:.1f} "
           f"ms): kernels busy {busy / 1e3:.1f} ms = "
           f"{100 * busy / (wall_s * 1e6):.1f}% of wall (idle "
           f"{100 - 100 * busy / (wall_s * 1e6):.1f}%), memcpy "
           f"{copy_us / 1e3:.1f} ms, {len(kern)} kernel launches, K1 "
           f"{k1 / 1e3:.2f} ms; on {card}", flush=True)
+    print("profile K1 per launch (us): " + "; ".join(
+        f"{k} {np.mean(v):.2f} mean, {np.min(v):.2f}..{np.max(v):.2f} over "
+        f"{len(v)} launches" for k, v in sorted(k1_parts.items())),
+        flush=True)
     print("profile top kernels (ms): " + "; ".join(
         f"{k[:60]} {v / 1e3:.2f}" for k, v in top), flush=True)
 
@@ -394,13 +582,14 @@ def main():
     _, log = build_k1()
     if not native.available():
         raise RuntimeError("the native ROI packer did not build")
-    print(f"built K1 and roipack in {time.perf_counter() - t0:.1f} s; "
-          f"ptxas: {' | '.join(ln.strip() for ln in log.splitlines() if 'registers' in ln or 'smem' in ln)}",
+    print(f"built K1 and roipack in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    for line in ptxas_report(log):
+        print(line, flush=True)
 
     rng = np.random.default_rng(0)
     # 2. K1 against its plain version
-    rows, max_err = check_k1(rng)
+    rows, mix_rows, max_err = check_k1(rng)
 
     # 3. the main path
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -411,7 +600,9 @@ def main():
 
     # 4. result lines
     main_row = next(r for r in rows if r["S"] == 128)
-    print(f"K1 at S=128 B=256 bf16 (main path): {main_row['ms']:.4f} ms; "
+    print(f"K1 at S=128 B=256 bf16 (main path): {main_row['ms']:.4f} ms "
+          f"(device alone {main_row['device_ms']:.4f} ms, wrapper host "
+          f"{main_row['host_us']:.1f} us per call); "
           f"RUN {run['img_s']:.1f} img/s; card {card}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "k1_preprocess_gray", "route": "cuda",
@@ -420,7 +611,12 @@ def main():
         "launches": launches, "max_abs_err": max_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}), flush=True)
+        "library_ms": main_row["library_ms"],
+        # launches counts K1 calls; each call launches two kernels (taps,
+        # resize). device_ms: the calls queued back to back on the card;
+        # host_us: the wrapper's host time per call
+        "kernels_per_launch": 2, "device_ms": main_row["device_ms"],
+        "host_us": main_row["host_us"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -11,13 +11,18 @@ model takes the result with a ``permute`` and no copy.
 
 Two versions compute it:
 
-* ``preprocess_gray_cuda`` — kernel K1 (``csrc/preprocess_gray.cu``), one
-  fused pass written by hand for Hopper, built at first use with nvcc and
-  called through ctypes. It counts its launches in
+* ``preprocess_gray_cuda`` — kernel K1 (``csrc/preprocess_gray.cu``),
+  written by hand for Hopper, built at first use with nvcc and called
+  through ctypes: one call launches a prologue that builds each image's tap
+  tables once per axis, then the fused resize. It counts its launches in
   ``preprocess_gray_cuda.launches``.
 * ``preprocess_gray_plain`` — the same arithmetic in plain PyTorch (two
   batched matmuls over the full weight matrices, like the JAX package).
   It is the CPU path and the kernel's oracle.
+
+``tap_tables_plain`` is the plain twin of K1's prologue (the compact tap
+tables), and ``tap_tables_cuda`` runs that prologue alone on the card, so
+the two can be held against each other.
 
 ``preprocess_gray`` picks by where the canvas lies: the plain version for a
 CPU tensor, the kernel for any other; it never falls back from one to the
@@ -27,15 +32,19 @@ other.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import os
 import shutil
 
+import numpy as np
 import torch
 
 from .._build import build_shared_library
 
-__all__ = ["resize_weights", "preprocess_gray", "preprocess_gray_plain",
-           "preprocess_gray_cuda", "build_k1"]
+__all__ = ["resize_weights", "tap_count", "tap_tables_plain",
+           "tap_tables_cuda", "preprocess_gray", "preprocess_gray_plain",
+           "preprocess_gray_cuda", "build_k1", "k1_resize_shape"]
 
 _K1_SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "preprocess_gray.cu")
@@ -63,6 +72,58 @@ def resize_weights(src_size, canvas_size: int, out_size: int, device=None):
     return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
 
 
+@functools.lru_cache(maxsize=None)
+def tap_count(canvas_size: int, out_size: int) -> int:
+    """T, the taps a trimmed window holds for any true extent within the
+    canvas: a window's positive weights lie strictly within fscale of its
+    center, so there are at most 2*ceil(fscale) of them, and fscale is at
+    most max(S/r, 1) (computed in float32, as K1 computes it)."""
+    scale = float(np.float32(canvas_size) / np.float32(out_size))
+    return 2 * math.ceil(max(scale, 1.0))
+
+
+def tap_tables_plain(sizes, canvas_size: int, out_size: int):
+    """Plain twin of K1's prologue: sizes int32 [B,2] (h, w) → (lo, n,
+    weights) with lo and n int32 [B,2,r] and weights float32 [B,2,r,T]
+    (zero past n). Window (b, axis, i) has the normalised PIL-BILINEAR
+    weights of output index i at canvas indices lo..lo+n-1, with the same
+    float32 operations in the same order as the kernel: the weights over
+    a window with one index of margin at each end, summed in index order,
+    each divided by the sum, then the margin taps that came out exactly 0
+    trimmed. Sizes are clamped to [0, S] as the kernel clamps them."""
+    S, r = canvas_size, out_size
+    T = tap_count(S, r)
+    width = T + 5  # the window before trimming
+    src_i = torch.as_tensor(sizes, dtype=torch.int32).clamp(0, S)[..., None]
+    src = src_i.to(torch.float32)                              # [B,2,1]
+    scale = src / torch.full_like(src, float(r))
+    fscale = torch.clamp(scale, min=1.0)
+    i = torch.arange(r, dtype=torch.float32)
+    center = (i + 0.5) * scale                                 # [B,2,r]
+    lo = torch.clamp(torch.floor(center - fscale - 0.5).to(torch.int32) - 1,
+                     min=0)
+    hi = torch.minimum(torch.ceil(center + fscale - 0.5).to(torch.int32) + 1,
+                       src_i - 1)
+    n = torch.clamp(hi - lo + 1, min=0, max=width)
+    k = torch.arange(width, dtype=torch.int32)
+    jj = (lo[..., None] + k).to(torch.float32)
+    w = torch.clamp(1.0 - torch.abs(jj + 0.5 - center[..., None])
+                    / fscale[..., None], min=0.0)
+    w = torch.where(k < n[..., None], w, 0.0)
+    total = torch.zeros_like(center)
+    for kk in range(width):  # index order, as the kernel sums
+        total = total + w[..., kk]
+    w = w / torch.clamp(total, min=1e-9)[..., None]
+    pos = w > 0
+    kept = pos.sum(dim=-1).to(torch.int32)
+    first = torch.where(kept > 0, pos.to(torch.int8).argmax(dim=-1), 0)
+    idx = (first[..., None] + torch.arange(T)).clamp(max=width - 1)
+    taps = torch.gather(w, -1, idx)
+    taps = torch.where(torch.arange(T) < kept[..., None], taps, 0.0)
+    return ((lo + first).to(torch.int32) * (kept > 0),
+            torch.clamp(kept, max=T), taps.contiguous())
+
+
 def _check_norm(mean, std):
     if (mean is None) != (std is None):
         raise ValueError("mean and std go together")
@@ -73,7 +134,8 @@ def _check_norm(mean, std):
 def preprocess_gray_plain(canvas, sizes, *, out_size, mean=None, std=None,
                           dtype=torch.float32):
     """Plain PyTorch version of K1: canvas uint8 [B,S,S], sizes int32
-    [B,2] → [B,out_size,out_size,3] in ``dtype``."""
+    [B,2] → [B,out_size,out_size,3] in ``dtype``. Sizes outside [0, S]
+    are outside the contract (the engine never sends them)."""
     _check_norm(mean, std)
     B, S, _ = canvas.shape
     r = out_size
@@ -116,24 +178,91 @@ def build_k1():
              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
              "-Xptxas", "-v"])
         lib = ctypes.CDLL(so)
-        fn = lib.k1_preprocess_gray
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_float),
-                       ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.k1_preprocess_gray.restype = i32
+        lib.k1_preprocess_gray.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, i32, i32, f32p, f32p, ptr, ptr,
+            i32, ptr]
+        lib.k1_tap_tables.restype = i32
+        lib.k1_tap_tables.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.k1_resize_shape.restype = i32
+        lib.k1_resize_shape.argtypes = [i32, i32, i32, i32, i32,
+                                        ctypes.POINTER(ctypes.c_int)]
         _k1 = (lib, log)
     return _k1
 
 
+def k1_resize_shape(B, canvas_size, out_size, dtype=torch.bfloat16):
+    """(dynamic shared memory per block in bytes, blocks resident per SM,
+    grid, threads per block, output rows per work item) of K1's resize
+    kernel for these arguments on the current card; for reports."""
+    lib, _ = build_k1()
+    shape = (ctypes.c_int * 5)()
+    err = lib.k1_resize_shape(B, canvas_size, out_size,
+                              tap_count(canvas_size, out_size),
+                              int(dtype == torch.bfloat16), shape)
+    if err != 0:
+        raise RuntimeError(f"K1 resize shape failed with cudaError_t {err}")
+    return tuple(shape)
+
+
+def _check_sizes(sizes, B, device):
+    if not (sizes.is_cuda and sizes.device == device):
+        raise ValueError("K1 needs canvas and sizes on one CUDA device "
+                         f"(got {device} and {sizes.device})")
+    if sizes.dtype != torch.int32 or tuple(sizes.shape) != (B, 2) \
+            or not sizes.is_contiguous():
+        raise ValueError(f"K1 needs contiguous int32 sizes [{B},2] (got "
+                         f"{sizes.dtype} {tuple(sizes.shape)})")
+
+
+def _tap_scratch(B, S, r, device):
+    """K1's tap tables in one allocation: (buffer, its data pointers for
+    the (lo, n) pairs int32 [B,2,r,2] and for the weights float32
+    [B,2,T,r] (tap-major) after them, T)."""
+    T = tap_count(S, r)
+    buf = torch.empty(B * 2 * r * (2 + T), dtype=torch.int32, device=device)
+    ptr = buf.data_ptr()
+    return buf, ptr, ptr + B * 2 * r * 2 * 4, T
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def tap_tables_cuda(sizes, canvas_size: int, out_size: int):
+    """K1's prologue alone on the card (for checks; not counted in K1's
+    launches): the same (lo, n, weights) as ``tap_tables_plain``."""
+    B = sizes.shape[0]
+    _check_sizes(sizes, B, sizes.device)
+    r = out_size
+    buf, lo_n, wt, T = _tap_scratch(B, canvas_size, r, sizes.device)
+    if B:
+        lib, _ = build_k1()
+        with torch.cuda.device(sizes.device):
+            err = lib.k1_tap_tables(sizes.data_ptr(), lo_n, wt, B,
+                                    canvas_size, r, T,
+                                    _stream(sizes.device))
+        if err != 0:
+            raise RuntimeError(f"K1 taps launch failed with cudaError_t "
+                               f"{err}")
+    n_ln = B * 2 * r * 2
+    lo_n = buf[:n_ln].view(B, 2, r, 2)
+    wt = buf[n_ln:].view(torch.float32).view(B, 2, T, r)
+    return lo_n[..., 0], lo_n[..., 1], wt.transpose(2, 3)
+
+
 def preprocess_gray_cuda(canvas, sizes, *, out_size, mean=None, std=None,
                          dtype=torch.bfloat16):
-    """K1 on the card: same contract as ``preprocess_gray_plain``; the
-    output is allocated here and the kernel launches on the current
-    stream without synchronising."""
-    if not (canvas.is_cuda and sizes.is_cuda
-            and canvas.device == sizes.device):
+    """K1 on the card: same contract as ``preprocess_gray_plain``, for a
+    canvas whose S is a multiple of 16 (every rung of the engine's ladder)
+    and whose data is 16-byte aligned; the output and the tap-table
+    scratch are allocated here and both kernels launch on the current
+    stream without synchronising. Sizes outside [0, S] are outside the
+    contract (the engine never sends them); the kernel clamps them, so
+    they cannot make it leave its buffers."""
+    if not canvas.is_cuda:
         raise ValueError("K1 needs canvas and sizes on one CUDA device "
                          f"(got {canvas.device} and {sizes.device})")
     if canvas.dtype != torch.uint8 or canvas.ndim != 3 \
@@ -141,11 +270,13 @@ def preprocess_gray_cuda(canvas, sizes, *, out_size, mean=None, std=None,
         raise ValueError("K1 needs a uint8 [B,S,S] canvas (got "
                          f"{canvas.dtype} {tuple(canvas.shape)})")
     B, S = canvas.shape[0], canvas.shape[1]
-    if sizes.dtype != torch.int32 or tuple(sizes.shape) != (B, 2):
-        raise ValueError(f"K1 needs int32 sizes [{B},2] (got {sizes.dtype} "
-                         f"{tuple(sizes.shape)})")
-    if not (canvas.is_contiguous() and sizes.is_contiguous()):
+    _check_sizes(sizes, B, canvas.device)
+    if not canvas.is_contiguous():
         raise ValueError("K1 needs contiguous canvas and sizes")
+    if S % 16 or canvas.data_ptr() % 16:
+        raise ValueError("K1 loads the canvas in 16-byte pieces: it needs S "
+                         f"a multiple of 16 (got {S}) and a 16-byte aligned "
+                         f"canvas (got address {canvas.data_ptr():#x})")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"K1 writes bf16 or f32, not {dtype}")
     if out_size < 1:
@@ -156,15 +287,16 @@ def preprocess_gray_cuda(canvas, sizes, *, out_size, mean=None, std=None,
     if B == 0:
         return out
     lib, _ = build_k1()
+    scratch, lo_n, wt, T = _tap_scratch(B, S, out_size, canvas.device)
     has_norm = mean is not None
     c_mean = (ctypes.c_float * 3)(*(mean if has_norm else (0.0,) * 3))
     c_std = (ctypes.c_float * 3)(*(std if has_norm else (1.0,) * 3))
     with torch.cuda.device(canvas.device):
-        stream = torch.cuda.current_stream(canvas.device).cuda_stream
         err = lib.k1_preprocess_gray(
             canvas.data_ptr(), sizes.data_ptr(), out.data_ptr(), B, S,
             out_size, int(dtype == torch.bfloat16), int(has_norm),
-            c_mean, c_std, stream)
+            c_mean, c_std, lo_n, wt, T, _stream(canvas.device))
+    del scratch  # freed after the launch: the allocator orders its reuse
     if err != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {err}")
     preprocess_gray_cuda.launches += 1
