@@ -24,7 +24,15 @@ Phases (any failure exits non-zero and prints no result):
      yardstick of the resize alone; the port never calls it), and again on
      the main path's size mix (ROI sides drawn as phase 3 draws them, with
      the share of (1,1) pad rows the engine's dispatch buckets leave).
-  3. the main path: synthetic IFCB bins (a realistic ROI size mix over the
+     K2 (csrc/preprocess_rgb.cu), built beside K1 (one nvcc per source,
+     started together), is held the same way against its plain version on
+     RGB canvases at every rung, B in {16, 128}, with and without the norm
+     and flips: f32 within 1e-5 before the norm and 1e-4 after it, bf16
+     equal to its f32 result rounded once; sizes outside [0, S] finish
+     finite and unreadable canvases are refused. Per rung at B=128, bf16
+     with norm and flips, it is timed as K1 is (F.interpolate on the full
+     RGB canvas as the yardstick).
+  3. the RUN path: synthetic IFCB bins (a realistic ROI size mix over the
      64..1024 rungs, one bin of 1,500 ROIs) are classified by
      ``RUN --batch 256`` of the port's CLI with a random-init full-width
      inception_v3 (50 classes, resize 299, BN folded, bf16). It checks every
@@ -32,7 +40,24 @@ Phases (any failure exits non-zero and prints no result):
      fp32 card result (TF32 off) against the port's CPU path on a small bin
      (scores within 1e-5), and prints the bf16-vs-fp32 score delta and the
      RUN's img/s.
-  4. prints the kernels line and, last, the device line.
+  4. the TRAIN path: ``TRAIN --batch 128`` of the port's CLI: a
+     folder-per-class PNG dataset written here (ROI sides drawn as phase 3
+     draws them, so the batches land on the rungs a real dataset's do) is
+     trained for 2 epochs, full-width inception_v3 @299, bf16, batch 128,
+     flips on. It checks finite losses, K2 calls = train + validation
+     steps, the .ptl written, and serves that .ptl with RUN on a bin (the
+     TRAIN→RUN round trip); it prints the train img/s and the rung of each
+     train batch. Then one train step in fp32 (TF32 off, dropout 0) on the
+     card against the port's CPU path on the same batch: loss within 1e-4
+     relative; every parameter's gradient within 3x the CPU f32
+     gradient's distance to a CPU float64 step's, plus 1e-3 of its norm
+     (the f32 noise-floor rule of tests/test_train_dynamics_parity.py: at
+     this untrained init the BN gradients of the early layers cancel so
+     far that f32 alone moves them by a few percent). Before it, the
+     port's avg_pool backward in channels_last on the card within 1e-5 of
+     a float64 CPU reference (PyTorch's own channels_last CUDA kernel,
+     which it avoids, is printed beside it).
+  5. prints the kernels line and, last, the device line.
 
 Weights and bins are made from fixed seeds; nothing is downloaded.
 """
@@ -61,6 +86,13 @@ TOL_F32 = 1e-5
 TOL_F32_NORM = 1e-4
 TOL_CPU_SCORES = 1e-5
 SLEEP_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock per queued call
+RGB_MEAN = (0.667, 0.6, 0.55)
+RGB_STD = (0.161, 0.2, 0.25)
+TRAIN_CLASSES = 4
+TRAIN_IMAGES = 160          # per class: 512 train + 128 val images
+TRAIN_BATCH = 128
+TOL_TRAIN_LOSS = 1e-4       # card fp32 vs CPU, relative
+TOL_TRAIN_GRAD = 1e-3       # card fp32 vs f64 truth beyond 3x CPU f32's
 
 
 def card_line():
@@ -122,21 +154,24 @@ def make_canvas(B, S, rng, full=False):
     return canvas, sizes
 
 
-def k1_bound(sizes, S, r, out_bytes):
-    """(bound ms, 'bytes'|'operations') for one K1 call on these inputs:
-    the bytes it needs (each image's true h x w canvas bytes and the sizes
-    read once, each output written once) against the multiply-adds of the
-    taps these sizes need."""
+def k1_bound(sizes, S, r, out_bytes, channels=1, flips=False):
+    """(bound ms, 'bytes'|'operations') for one K1 call (channels=1) or K2
+    call (channels=3) on these inputs: the bytes it needs (each image's
+    true h x w x channels canvas bytes, the sizes and the flip mask read
+    once, each output written once) against the multiply-adds of the taps
+    these sizes need."""
     import torch
     from ifcb_classifier_tpu_torch.ops.preprocess import resize_weights
     B = sizes.shape[0]
-    in_bytes = int((sizes[:, 0].astype(np.int64) * sizes[:, 1]).sum())
-    nbytes = in_bytes + sizes.nbytes + B * r * r * 3 * out_bytes
+    in_bytes = int((sizes[:, 0].astype(np.int64) * sizes[:, 1]).sum()) \
+        * channels
+    nbytes = in_bytes + sizes.nbytes + B * r * r * 3 * out_bytes \
+        + (2 * B if flips else 0)
     nnz_h = (resize_weights(torch.from_numpy(sizes[:, 0]), S, r) > 0) \
         .sum(dim=(1, 2)).numpy()
     nnz_w = (resize_weights(torch.from_numpy(sizes[:, 1]), S, r) > 0) \
         .sum(dim=(1, 2)).numpy()
-    ops = float(np.sum(2 * sizes[:, 1] * nnz_h + 2 * r * nnz_w)
+    ops = float(channels * np.sum(2 * sizes[:, 1] * nnz_h + 2 * r * nnz_w)
                 + B * r * r * 8)  # /255, clip, 3x (x-m)/s
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_FLOP_PER_S * 1e3
@@ -159,44 +194,60 @@ def check_taps(sizes, s, S):
                 f"{float((g.cpu().double() - want.double()).abs().max())}")
 
 
-def check_out_of_range(S, rng):
-    """Sizes outside [0, S]: outside the contract, but K1 must stay inside
-    its buffers (it clamps them) and finish with finite output."""
+def check_out_of_range(S, rng, rgb=False):
+    """Sizes outside [0, S]: outside the contract, but K1 (K2 with
+    rgb=True, flips on) must stay inside its buffers (it clamps them) and
+    finish with finite output."""
     import torch
-    from ifcb_classifier_tpu_torch.ops.preprocess import preprocess_gray_cuda
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        preprocess_gray_cuda, preprocess_rgb_cuda)
     sizes = np.array([(0, S), (S, 0), (2 * S, S), (S, 2 * S), (2 * S, 2 * S),
                       (0, 0), (-3, S), (S, S)], np.int32)
-    canvas = rng.integers(0, 256, size=(len(sizes), S, S), dtype=np.uint8)
-    c = torch.from_numpy(canvas).cuda()
+    shape = (len(sizes), S, S) + ((3,) if rgb else ())
+    c = torch.from_numpy(rng.integers(0, 256, size=shape,
+                                      dtype=np.uint8)).cuda()
     s = torch.from_numpy(sizes).cuda()
+    if rgb:
+        f = torch.ones((len(sizes), 2), dtype=torch.uint8, device="cuda")
+        fn = lambda dtype: preprocess_rgb_cuda(
+            c, s, out_size=R, mean=RGB_MEAN, std=RGB_STD, flips=f,
+            dtype=dtype)
+    else:
+        fn = lambda dtype: preprocess_gray_cuda(
+            c, s, out_size=R, mean=MEAN, std=STD, dtype=dtype)
     for dtype in (torch.float32, torch.bfloat16):
-        out = preprocess_gray_cuda(c, s, out_size=R, mean=MEAN, std=STD,
-                                   dtype=dtype)
+        out = fn(dtype)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out.float()).all()):
-            raise AssertionError(f"K1 sizes outside [0, {S}]: non-finite "
-                                 f"output ({dtype})")
+            raise AssertionError(f"{'K2' if rgb else 'K1'} sizes outside "
+                                 f"[0, {S}]: non-finite output ({dtype})")
 
 
-def check_rejects(S):
+def check_rejects(S, rgb=False):
     """The wrapper refuses a canvas that its 16-byte loads cannot read: S
     not a multiple of 16, or data not 16-byte aligned."""
     import torch
-    from ifcb_classifier_tpu_torch.ops.preprocess import preprocess_gray_cuda
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        preprocess_gray_cuda, preprocess_rgb_cuda)
+    fn = preprocess_rgb_cuda if rgb else preprocess_gray_cuda
+    ch = (3,) if rgb else ()
     sizes = torch.ones((2, 2), dtype=torch.int32, device="cuda")
-    odd = torch.zeros((2, S - 8, S - 8), dtype=torch.uint8, device="cuda")
-    flat = torch.zeros(2 * S * S + 16, dtype=torch.uint8, device="cuda")
-    shifted = flat[8:8 + 2 * S * S].view(2, S, S)
-    before = preprocess_gray_cuda.launches
+    odd = torch.zeros((2, S - 8, S - 8) + ch, dtype=torch.uint8,
+                      device="cuda")
+    n = 2 * S * S * (3 if rgb else 1)
+    flat = torch.zeros(n + 16, dtype=torch.uint8, device="cuda")
+    shifted = flat[8:8 + n].view((2, S, S) + ch)
+    before = fn.launches
     for bad in (odd, shifted):
         try:
-            preprocess_gray_cuda(bad, sizes, out_size=R)
+            fn(bad, sizes, out_size=R)
         except ValueError:
             continue
-        raise AssertionError(f"K1 accepted a canvas {tuple(bad.shape)} at "
-                             f"address {bad.data_ptr():#x}")
-    if preprocess_gray_cuda.launches != before:
-        raise AssertionError("K1 counted a launch it refused")
+        raise AssertionError(f"{fn.__name__} accepted a canvas "
+                             f"{tuple(bad.shape)} at address "
+                             f"{bad.data_ptr():#x}")
+    if fn.launches != before:
+        raise AssertionError(f"{fn.__name__} counted a launch it refused")
 
 
 def roi_sides(n, rng):
@@ -334,6 +385,365 @@ def check_k1(rng):
     return rows, mix_rows, max_err
 
 
+def make_rgb_canvas(B, S, rng, full=False):
+    """uint8 [B,S,S,3] zero outside each image, int32 sizes as make_canvas
+    draws them."""
+    gray, sizes = make_canvas(B, S, rng, full=full)
+    canvas = np.zeros((B, S, S, 3), np.uint8)
+    for b, (h, w) in enumerate(sizes):
+        canvas[b, :h, :w] = rng.integers(0, 256, size=(h, w, 3),
+                                         dtype=np.uint8)
+    return canvas, sizes
+
+
+def check_k2(rng):
+    """Phase 2, K2. Returns (per-rung timing rows, max f32 error after the
+    norm)."""
+    import torch
+    import torch.nn.functional as F
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        k2_resize_shape, preprocess_rgb_cuda, preprocess_rgb_plain)
+    dev = torch.device("cuda")
+    side_rng = np.random.default_rng(2)
+    max_err, rows = 0.0, []
+    for S in LADDER:
+        check_out_of_range(S, side_rng, rgb=True)
+        check_rejects(S, rgb=True)
+        for B in (16, TRAIN_BATCH):
+            canvas, sizes = make_rgb_canvas(B, S, side_rng)
+            c = torch.from_numpy(canvas).to(dev)
+            s = torch.from_numpy(sizes).to(dev)
+            f = torch.from_numpy(side_rng.integers(0, 2, (B, 2))
+                                 .astype(np.uint8)).to(dev)
+            for mean, std, tol in ((None, None, TOL_F32),
+                                   (RGB_MEAN, RGB_STD, TOL_F32_NORM)):
+                for flips in (None, f):
+                    ref = preprocess_rgb_plain(c, s, out_size=R, mean=mean,
+                                               std=std, flips=flips)
+                    got = preprocess_rgb_cuda(c, s, out_size=R, mean=mean,
+                                              std=std, flips=flips,
+                                              dtype=torch.float32)
+                    bf = preprocess_rgb_cuda(c, s, out_size=R, mean=mean,
+                                             std=std, flips=flips,
+                                             dtype=torch.bfloat16)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"K2 f32 S={S} B={B} norm={mean is not None} "
+                            f"flips={flips is not None}: max|err| {err} > "
+                            f"{tol}")
+                    if mean is not None:
+                        max_err = max(max_err, err)
+                    if not torch.equal(bf, got.to(torch.bfloat16)):
+                        n_diff = int((bf != got.to(torch.bfloat16)).sum())
+                        raise AssertionError(
+                            f"K2 bf16 S={S} B={B}: {n_diff} values differ "
+                            "from the f32 result rounded to bf16")
+            print(f"K2 check S={S} B={B}: ok (f32 max|err| with norm and "
+                  f"flips {err:.3g}; sizes outside [0, S] finite; "
+                  "unaligned canvas refused)", flush=True)
+        # timing at the training batch, bf16 + norm + flips
+        B = TRAIN_BATCH
+        kernel = lambda: preprocess_rgb_cuda(
+            c, s, out_size=R, mean=RGB_MEAN, std=RGB_STD, flips=f,
+            dtype=torch.bfloat16)
+        plain = lambda: preprocess_rgb_plain(
+            c, s, out_size=R, mean=RGB_MEAN, std=RGB_STD, flips=f,
+            dtype=torch.bfloat16)
+        xf = torch.empty((B, 3, S, S), device=dev).uniform_(0, 255)
+        lib = lambda: F.interpolate(xf, (R, R), mode="bilinear",
+                                    antialias=True, align_corners=False)
+        row = dict(S=S, B=B, ms=cuda_ms(kernel, 20),
+                   device_ms=cuda_ms(kernel, 20, queued=True),
+                   host_us=host_us(kernel), plain_ms=cuda_ms(plain, 3),
+                   library_ms=cuda_ms(lib, 5))
+        row["bound_ms"], row["bound_by"] = k1_bound(sizes, S, R, 2,
+                                                    channels=3, flips=True)
+        (row["smem"], row["per_sm"], row["grid"], row["threads"],
+         row["step"]) = k2_resize_shape(B, S, R)
+        rows.append(row)
+        print("K2 time S={S} B={B} bf16 norm flips: kernel {ms:.4f} ms "
+              "(device alone {device_ms:.4f} ms; wrapper host {host_us:.1f} "
+              "us per call), plain {plain_ms:.4f} ms, F.interpolate "
+              "(resize only, full RGB canvas) {library_ms:.4f} ms, bound "
+              "{bound_ms:.4f} ms ({bound_by}); resize grid {grid} x "
+              "{threads} threads, {step} rows per item, {per_sm} blocks per "
+              "SM, {smem} B shared memory each".format(**row), flush=True)
+        del c, s, f, xf
+    return rows, max_err
+
+
+def write_train_dataset(root, rng):
+    """Folder-per-class PNGs (RGB) with ROI sides drawn as phase 3 draws
+    them: a plankton-like blob of a per-class tint in noise."""
+    from PIL import Image
+    for k in range(TRAIN_CLASSES):
+        d = os.path.join(root, f"class{k}")
+        os.makedirs(d)
+        tint = np.array([1.0, 0.6 + 0.1 * k, 1.0 - 0.15 * k])
+        for i, (h, w) in enumerate(roi_sides(TRAIN_IMAGES, rng)):
+            yy, xx = np.mgrid[0:h, 0:w]
+            blob = 200 - 120 * np.exp(-(((yy - h / 2) / (h / 4)) ** 2
+                                        + ((xx - w / 2) / (w / 4)) ** 2))
+            img = blob[..., None] * tint + rng.normal(0, 12, (h, w, 3))
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, f"{i:04d}.png"))
+
+
+def train_step_card_vs_cpu(ds_root, seed=0):
+    """One fp32 train step (TF32 off, dropout 0, channels_last as TRAIN
+    lays the model out) on the card and on the CPU from the same weights
+    and batch, and a float64 one on the CPU as the truth: (loss rel.
+    difference card vs CPU, per-tensor gradient rows (name, card distance
+    to the truth, CPU f32 distance) over the tensor's norm)."""
+    import torch
+    from ifcb_classifier_tpu_torch.data.datasets import NeustonDataset
+    from ifcb_classifier_tpu_torch.data.pipeline import HostLoader
+    from ifcb_classifier_tpu_torch.models.inception import InceptionV3
+    from ifcb_classifier_tpu_torch.ops.preprocess import preprocess_rgb
+    from ifcb_classifier_tpu_torch.train.state import (
+        init_params, make_optimizer, make_train_step)
+    from ifcb_classifier_tpu_torch.utils.config import resolve_dtype
+    nd = NeustonDataset(ds_root)
+    batch = next(iter(HostLoader(nd.images[::40], nd.targets[::40],
+                                 batch_size=8, seed=seed)))
+    resolve_dtype("fp32", "cuda")  # turns TF32 off
+    out = {}
+    for name, dev, dtype in (("card", "cuda", torch.float32),
+                             ("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64)):
+        model = init_params(InceptionV3(TRAIN_CLASSES, aux_logits=True,
+                                        dropout_rate=0.0), seed)
+        model = model.to(device=dev, dtype=dtype,
+                         memory_format=torch.channels_last)
+        step = make_train_step(model, make_optimizer(model.parameters()),
+                               dtype=dtype)
+        c = torch.from_numpy(batch["canvas"]).to(dev)
+        s = torch.from_numpy(batch["sizes"]).to(dev)
+        x = preprocess_rgb(c, s, out_size=R, mean=RGB_MEAN, std=RGB_STD,
+                           dtype=torch.float32).to(dtype)
+        loss = float(step(x, torch.from_numpy(batch["labels"]).to(dev),
+                          torch.from_numpy(batch["mask"]).to(dev)))
+        out[name] = (loss, {n: p.grad.detach().double().cpu()
+                            for n, p in model.named_parameters()})
+    (lg, gg), (lc, gc), (_, g64) = out["card"], out["cpu"], out["cpu64"]
+    rel = abs(lg - lc) / max(abs(lc), 1e-30)
+    rows = []
+    for n, truth in g64.items():
+        tn = max(float(truth.norm()), 1e-30)
+        rows.append((n, float((gg[n] - truth).norm()) / tn,
+                     float((gc[n] - truth).norm()) / tn))
+    return rel, rows
+
+
+def train_profile(ds, work, card):
+    """One more TRAIN epoch of the same dataset (4 train + 1 validation
+    steps) under torch.profiler, after the cuDNN warm-up. Read inside the
+    loop's ``train_pass`` span alone (the train steps, without the dataset
+    scan, model build, validation and writes): its wall, the card's busy
+    share, the host's time waiting on the loader, in the copies in
+    (``h2d`` spans) and launching the steps (``step`` spans), the top
+    kernels and K2's share; and, beside it, the busy share of the whole
+    invocation. Informational, like phase 3's profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ifcb_classifier_tpu_torch.cli import main_cli
+    from ifcb_classifier_tpu_torch.train.loop import do_training
+    argv = ["--batch", str(TRAIN_BATCH), "TRAIN", ds, "inception_v3",
+            "smoke_prof", "--emax", "1", "--estop", "0", "--outdir",
+            os.path.join(work, "train_prof"), "--seed", "1", "--flip", "xy",
+            "--img-norm", ",".join(map(str, RGB_MEAN)),
+            ",".join(map(str, RGB_STD))]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        main_cli(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kern = [e for e in device_events(prof)
+            if not e.name.startswith(("Memcpy", "Memset"))]
+    spans = [e for e in prof.events() if e.name == "train_pass"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    if not kern or len(spans) != 1:
+        print(f"train profile: {len(kern)} device events and {len(spans)} "
+              "train_pass spans recorded; no breakdown", flush=True)
+        return
+    a, b = spans[0].time_range.start, spans[0].time_range.end
+    busy_all = union_us((e.time_range.start, e.time_range.end) for e in kern)
+    inside = [e for e in kern if a <= e.time_range.start < b]
+    copy_ms = union_us(
+        (e.time_range.start, min(e.time_range.end, b))
+        for e in device_events(prof) if e.name.startswith("Memcpy")
+        and a <= e.time_range.start < b) / 1e3
+    busy = union_us((e.time_range.start, min(e.time_range.end, b))
+                    for e in inside)
+    by_name = {}
+    for e in inside:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    k2 = sum(v for k, v in by_name.items() if "preprocess_rgb" in k
+             or "preprocess_gray_taps" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    wait_ms = 1e3 * do_training.stats["epoch_wait_seconds"][-1]
+    pass_ms = (b - a) / 1e3
+    host_ms = {n: sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.name == n and a <= e.time_range.start < b
+                      and e.device_type == torch.autograd.DeviceType.CPU)
+               / 1e3 for n in ("h2d", "step")}
+    print(f"train profile, train pass alone (4 warm steps, wall "
+          f"{pass_ms:.1f} ms): kernels busy {busy / 1e3:.1f} ms = "
+          f"{100 * busy / (b - a):.1f}% (idle "
+          f"{100 - 100 * busy / (b - a):.1f}%), waiting on the host loader "
+          f"{wait_ms:.1f} ms = {100 * wait_ms / pass_ms:.1f}% of the pass, "
+          f"in the copies in {host_ms['h2d']:.1f} ms = "
+          f"{100 * host_ms['h2d'] / pass_ms:.1f}%, launching the steps "
+          f"{host_ms['step']:.1f} ms = {100 * host_ms['step'] / pass_ms:.1f}%, "
+          f"memcpy on the card {copy_ms:.1f} ms, "
+          f"{len(inside)} kernel launches, K2 (taps + resize) "
+          f"{k2 / 1e3:.2f} ms; the whole 1-epoch invocation (dataset scan, "
+          f"model build, validation, writes): wall {wall_s * 1e3:.1f} ms, "
+          f"busy {busy_all / 1e3:.1f} ms = "
+          f"{100 * busy_all / (wall_s * 1e6):.1f}%; on {card}", flush=True)
+    print("train profile, train pass top kernels (ms): " + "; ".join(
+        f"{k[:60]} {v / 1e3:.2f}" for k, v in top), flush=True)
+
+
+def check_avg_pool_backward():
+    """The port's avg_pool backward on the card, channels_last f32, for
+    inception's two pool shapes, against PyTorch's native backward in
+    float64 on the CPU (within 1e-5 of its norm); beside it the error of
+    PyTorch's own channels_last CUDA avg_pool2d backward, which the port
+    does not use. Returns {geometry: (port error, native error)}."""
+    import torch
+    import torch.nn.functional as F
+    from ifcb_classifier_tpu_torch.models.layers import avg_pool
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for (w, st, p), shape in (((3, 1, 1), (8, 192, 35, 35)),
+                              ((5, 3, 0), (8, 768, 17, 17))):
+        x = torch.randn(shape, generator=g, dtype=torch.float64)
+        x64 = x.clone().requires_grad_(True)
+        y64 = F.avg_pool2d(x64, w, st, p, count_include_pad=True)
+        dy = torch.randn(y64.shape, generator=g, dtype=torch.float64)
+        y64.backward(dy)
+        ref = x64.grad
+        errs = []
+        for fn in (avg_pool, lambda t, *a: F.avg_pool2d(
+                t, *a, count_include_pad=True)):
+            xc = x.float().cuda().contiguous(
+                memory_format=torch.channels_last).requires_grad_(True)
+            fn(xc, w, st, p).backward(dy.float().cuda().contiguous(
+                memory_format=torch.channels_last))
+            errs.append(float((xc.grad.double().cpu() - ref).norm()
+                              / ref.norm()))
+        out[(w, st, p)] = tuple(errs)
+        if not errs[0] <= 1e-5:
+            raise AssertionError(f"avg_pool {w}/{st}/{p} backward on the "
+                                 f"card: rel. error {errs[0]}")
+    return out
+
+
+def train_path(work, bins_dir, card):
+    """Phase 4. Returns the TRAIN numbers (K2 launches among them)."""
+    import torch
+    from ifcb_classifier_tpu_torch.cli import main_cli
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        preprocess_gray_cuda, preprocess_rgb_cuda)
+    from ifcb_classifier_tpu_torch.train.loop import do_training
+
+    ds = os.path.join(work, "train_ds")
+    t0 = time.perf_counter()
+    write_train_dataset(ds, np.random.default_rng(3))
+    print(f"TRAIN dataset: {TRAIN_CLASSES} classes x {TRAIN_IMAGES} PNGs "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    out = os.path.join(work, "train")
+    argv = ["--batch", str(TRAIN_BATCH), "TRAIN", ds, "inception_v3",
+            "smoke_train", "--emax", "2", "--estop", "0", "--outdir", out,
+            "--seed", "1", "--flip", "xy", "--img-norm",
+            ",".join(map(str, RGB_MEAN)), ",".join(map(str, RGB_STD))]
+    preprocess_gray_cuda.launches = 0
+    preprocess_rgb_cuda.launches = 0
+    t0 = time.perf_counter()
+    main_cli(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k2 = preprocess_rgb_cuda.launches
+    k1 = preprocess_gray_cuda.launches
+    st = dict(do_training.stats)
+    steps = st["train_steps"] + st["val_steps"]
+    if not (k2 > 0 and k2 == steps and k1 == 0):
+        raise AssertionError(f"K2 launched {k2} times (K1 {k1}) for "
+                             f"{steps} train + validation steps")
+    with open(os.path.join(out, "epochs.csv")) as f:
+        rows = f.read().splitlines()[1:]
+    losses = [float(v) for r in rows for v in r.split(",")[2:4]]
+    if len(rows) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"TRAIN epochs.csv: {rows}")
+    ptl = os.path.join(out, "smoke_train.ptl")
+    if not os.path.isfile(ptl):
+        raise AssertionError("TRAIN wrote no .ptl")
+    img_s = st["train_images"] / st["train_seconds"]
+    warm_img_s = st["epoch_images"][-1] / st["epoch_seconds"][-1]
+    rungs = dict(sorted(st["rungs"].items()))
+    print(f"TRAIN (inception_v3 @299 bf16, batch {TRAIN_BATCH}, 2 epochs, "
+          f"flips xy): {st['train_steps']} train + {st['val_steps']} "
+          f"validation steps, K2 launches {k2} ({k2 // 2} per epoch), wall "
+          f"{wall_s:.1f} s incl. model build; train passes "
+          f"{st['train_images']} images in {st['train_seconds']:.2f} s = "
+          f"{img_s:.1f} img/s (the first step's warm-up included; second "
+          f"epoch alone {warm_img_s:.1f} img/s); waits on the host loader "
+          f"per epoch {[round(w, 3) for w in st['epoch_wait_seconds']]} s "
+          f"of {[round(t, 3) for t in st['epoch_seconds']]} s; train-batch "
+          f"canvas rungs {rungs}; losses {losses} on {card}", flush=True)
+    train_profile(ds, work, card)
+
+    # TRAIN -> RUN: the trained checkpoint serves a bin
+    run_out = os.path.join(work, "train_run")
+    preprocess_gray_cuda.launches = 0
+    engine = main_cli(["--batch", "256", "RUN", bins_dir, ptl, "smoke",
+                       "--outdir", run_out, "--outfile",
+                       "{BIN_ID}_class.json"])
+    torch.cuda.synchronize()
+    if not (preprocess_gray_cuda.launches == engine.dispatches > 0):
+        raise AssertionError("TRAIN->RUN: K1 launches "
+                             f"{preprocess_gray_cuda.launches} for "
+                             f"{engine.dispatches} dispatches")
+    n_json = 0
+    for name in os.listdir(run_out):
+        if name.endswith("_class.json"):
+            with open(os.path.join(run_out, name)) as f:
+                res = json.load(f)
+            scores = np.asarray(res["output_scores"])
+            if scores.shape[1] != TRAIN_CLASSES \
+                    or not np.isfinite(scores).all():
+                raise AssertionError(f"TRAIN->RUN {name}: {scores.shape}")
+            n_json += 1
+    if n_json != len(BIN_SIZES):
+        raise AssertionError(f"TRAIN->RUN wrote {n_json} result files")
+    print(f"TRAIN->RUN: the trained .ptl classified {len(BIN_SIZES)} bins "
+          f"({engine.dispatches} dispatches through K1)", flush=True)
+
+    pools = check_avg_pool_backward()
+    print("avg_pool backward on the card, channels_last f32, vs float64: "
+          + "; ".join(f"{w}/{st}/{p}: the port's {e[0]:.3g}, PyTorch's "
+                      f"channels_last CUDA kernel {e[1]:.3g}"
+                      for (w, st, p), e in pools.items()), flush=True)
+    rel, rows = train_step_card_vs_cpu(ds)
+    bad = [r for r in rows if r[1] > 3 * r[2] + TOL_TRAIN_GRAD]
+    worst = max(rows, key=lambda r: r[1] - 3 * r[2])
+    if not (rel <= TOL_TRAIN_LOSS) or bad:
+        raise AssertionError(f"train step card fp32 vs CPU: loss rel {rel}, "
+                             f"gradients off the f64 truth {bad[:5]}")
+    print(f"train step card fp32 (TF32 off) vs CPU path, batch 8: loss "
+          f"rel. diff {rel:.3g} (tolerance {TOL_TRAIN_LOSS}); every "
+          f"gradient within 3x the CPU f32 distance to the f64 truth + "
+          f"{TOL_TRAIN_GRAD} of its norm (closest to the limit: {worst[0]} "
+          f"card {worst[1]:.3g}, CPU f32 {worst[2]:.3g}; largest card "
+          f"distance {max(r[1] for r in rows):.3g})", flush=True)
+    return dict(k2_launches=k2, img_s=img_s, warm_img_s=warm_img_s,
+                rungs=rungs, wall_s=wall_s, steps=steps)
+
+
 def ptxas_report(log):
     """'ptxas <kernel>: <registers, static shared memory>' per compiled
     kernel."""
@@ -343,7 +753,8 @@ def ptxas_report(log):
             name = ln.split("'")[1] if "'" in ln else ln.strip()
             rows = re.search(r"Li(\d+)E", name)
             kernel = ("preprocess_gray_taps" if "taps" in name else
-                      "preprocess_gray_resize<{}, {} rows>".format(
+                      "preprocess_{}_resize<{}, {} rows>".format(
+                          "rgb" if "rgb_resize" in name else "gray",
                           "bf16" if "bfloat16" in name else "f32",
                           rows.group(1) if rows else "?")
                       if "resize" in name else name)
@@ -419,29 +830,38 @@ def read_scores(outdir, pid):
     return np.asarray(res["output_scores"], np.float64), res["roi_numbers"]
 
 
+def device_events(prof):
+    """The profile's events on the card, without the user-annotation spans
+    (such as ``Optimizer.step#Adam.step``) that cover kernels and are none."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def union_us(spans):
+    """Length of the union of (start, end) spans: the card's busy time."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def profile_breakdown(run, card):
     """The warm RUN once more under torch.profiler: the card's busy share
     (union of kernel spans over the wall time) and the kernels that take
     it. Informational: a profiler that records no device events is said
     so, not treated as a failure of the path."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_s = run()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof)
     if not dev:
         print("profile: the profiler recorded no device events", flush=True)
         return
-
-    def union_us(spans):
-        total, end = 0.0, float("-inf")
-        for a, b in sorted(spans):
-            if b > end:
-                total += b - max(a, end)
-                end = b
-        return total
 
     kern = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
     copy = [e for e in dev if e.name.startswith("Memcpy")]
@@ -473,12 +893,14 @@ def profile_breakdown(run, card):
 
 
 def main_path(work, rng, card):
-    """Phase 3. Returns (K1 launches in the RUN, RUN numbers)."""
+    """Phase 3. Returns (K1 launches in the RUN, RUN numbers). The bins
+    stay in ``work``/bins for phase 4."""
     import torch
     from ifcb_classifier_tpu_torch.cli import argparse_nn, main, main_cli
     from ifcb_classifier_tpu_torch.data.ifcb import Bin
     from ifcb_classifier_tpu_torch.infer.runner import InferenceEngine
-    from ifcb_classifier_tpu_torch.ops.preprocess import preprocess_gray_cuda
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        preprocess_gray_cuda, preprocess_rgb_cuda)
     from ifcb_classifier_tpu_torch.utils.config import (
         add_runtime_params, proc_outdir, resolve_dtype)
 
@@ -496,11 +918,14 @@ def main_path(work, rng, card):
             "--outdir", out, "--outfile", "{BIN_ID}_class.json",
             "--summary", "summary.json"]
     preprocess_gray_cuda.launches = 0
+    preprocess_rgb_cuda.launches = 0
     t0 = time.perf_counter()
     engine = main_cli(argv)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = preprocess_gray_cuda.launches
+    if preprocess_rgb_cuda.launches:
+        raise AssertionError("RUN on bins launched K2")
     dispatches = engine.dispatches
     if not (launches > 0 and launches == dispatches):
         raise AssertionError(f"K1 launched {launches} times for "
@@ -568,8 +993,10 @@ def main():
               "runs on a CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from concurrent.futures import ThreadPoolExecutor
+
     from ifcb_classifier_tpu_torch import native
-    from ifcb_classifier_tpu_torch.ops.preprocess import build_k1
+    from ifcb_classifier_tpu_torch.ops.preprocess import build_k1, build_k2
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -578,32 +1005,49 @@ def main():
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version in f32
 
+    # one compiler process per source, started together
     t0 = time.perf_counter()
-    _, log = build_k1()
-    if not native.available():
-        raise RuntimeError("the native ROI packer did not build")
-    print(f"built K1 and roipack in {time.perf_counter() - t0:.1f} s",
+    with ThreadPoolExecutor(3) as pool:
+        k1_job, k2_job = pool.submit(build_k1), pool.submit(build_k2)
+        packer = pool.submit(native.available)
+        logs = [k1_job.result()[1], k2_job.result()[1]]
+        if not packer.result():
+            raise RuntimeError("the native ROI packer did not build")
+    print(f"built K1, K2 and roipack in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for line in ptxas_report(log):
-        print(line, flush=True)
+    for log in logs:
+        for line in ptxas_report(log):
+            print(line, flush=True)
 
     rng = np.random.default_rng(0)
-    # 2. K1 against its plain version
+    # 2. K1 and K2 against their plain versions
     rows, mix_rows, max_err = check_k1(rng)
+    k2_rows, k2_err = check_k2(rng)
 
-    # 3. the main path
+    # 3. the RUN path, 4. the TRAIN path
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, run = main_path(work, rng, card)
+        train = train_path(work, os.path.join(work, "bins"), card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 4. result lines
+    # 5. result lines
     main_row = next(r for r in rows if r["S"] == 128)
+    # K2's row: the rung most of this run's train batches landed on
+    k2_S = max(train["rungs"], key=train["rungs"].get)
+    k2_row = next(r for r in k2_rows if r["S"] == k2_S)
     print(f"K1 at S=128 B=256 bf16 (main path): {main_row['ms']:.4f} ms "
           f"(device alone {main_row['device_ms']:.4f} ms, wrapper host "
           f"{main_row['host_us']:.1f} us per call); "
           f"RUN {run['img_s']:.1f} img/s; card {card}", flush=True)
+    print(f"K2 at S={k2_S} B={TRAIN_BATCH} bf16 norm flips (the TRAIN "
+          f"batches' most common rung): {k2_row['ms']:.4f} ms (device "
+          f"alone {k2_row['device_ms']:.4f} ms, wrapper host "
+          f"{k2_row['host_us']:.1f} us per call), bound "
+          f"{k2_row['bound_ms']:.4f} ms; TRAIN {train['img_s']:.1f} img/s "
+          f"(second epoch {train['warm_img_s']:.1f}); card {card}",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "k1_preprocess_gray", "route": "cuda",
         "source": "ifcb_classifier_tpu_torch/csrc/preprocess_gray.cu",
@@ -616,7 +1060,18 @@ def main():
         # resize). device_ms: the calls queued back to back on the card;
         # host_us: the wrapper's host time per call
         "kernels_per_launch": 2, "device_ms": main_row["device_ms"],
-        "host_us": main_row["host_us"]}]}), flush=True)
+        "host_us": main_row["host_us"]}, {
+        "name": "k2_preprocess_rgb", "route": "cuda",
+        "source": "ifcb_classifier_tpu_torch/csrc/preprocess_rgb.cu",
+        # an XLA fusion on the TPU, no pallas_call: the RGB branch of
+        # preprocess_batch (resize_bilinear_matmul, _flip_batch)
+        "replaces": "ifcb_classifier_tpu/ops/preprocess.py:57",
+        "launches": train["k2_launches"], "max_abs_err": k2_err,
+        "ms": k2_row["ms"], "plain_ms": k2_row["plain_ms"],
+        "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
+        "library_ms": k2_row["library_ms"], "S": k2_S,
+        "kernels_per_launch": 2, "device_ms": k2_row["device_ms"],
+        "host_us": k2_row["host_us"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

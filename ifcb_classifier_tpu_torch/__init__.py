@@ -6,16 +6,19 @@ nothing of it (nor of JAX). Where the JAX package has a Pallas kernel on
 this port's path, the port has a hand-written CUDA kernel for Hopper
 (sm_90a) under ``csrc/`` with a plain PyTorch version beside it.
 
-Ported so far: ``RUN --type bin`` with the BN-folded inception_v3.
+Ported so far: ``RUN --type bin`` with the BN-folded inception_v3, and
+``TRAIN`` of inception_v3 through kernel K2.
 
 Subpackages:
-  data/     IFCB bin reader, canvas ladder, image-norm parsing (host side)
+  data/     IFCB bin reader, dataset manifests, canvas ladder, loader
+            (host side)
   native/   C++ ROI canvas packer, loaded through ctypes
-  ops/      device preprocessing (kernel K1 + its plain version)
+  ops/      device preprocessing (kernels K1, K2 + their plain versions)
   models/   inception_v3 (torchvision layout), BN folding, JAX weight carry-over
-  train/    checkpoint codec (ifcbnn-ckpt-v1 msgpack), predict step
+  train/    checkpoint codec (ifcbnn-ckpt-v1 msgpack), resume state,
+            optimizer, loss and steps, the TRAIN loop
   infer/    RUN engine and verb
-  results/  .json/.mat/.h5 result writers
+  results/  .json/.mat/.h5 result writers (RUN and validation)
   utils/    outdir templating, device and dtype policy
 """
 

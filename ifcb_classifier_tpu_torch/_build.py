@@ -17,16 +17,17 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 
 
-def build_shared_library(name: str, sources, command,
-                         libs=()) -> tuple[str, str]:
+def build_shared_library(name: str, sources, command, libs=(),
+                         headers=()) -> tuple[str, str]:
     """Compile ``sources`` with ``command`` (the compiler and its flags,
     without ``-o`` and the source list) into ``BUILD_DIR``, linking
-    ``libs`` after the sources.
+    ``libs`` after the sources. ``headers`` are files the sources include:
+    they are hashed with them, not compiled.
 
     Returns ``(path to the .so, compiler output)``; the output is empty when
     the library was already built."""
     digest = hashlib.sha256()
-    for src in sources:
+    for src in (*sources, *headers):
         with open(src, "rb") as f:
             digest.update(f.read())
     digest.update("\0".join([*command, *libs]).encode())

@@ -79,181 +79,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
+#include "preprocess_common.cuh"
 
 namespace {
-
-constexpr int kMaxThreads = 512;  // threads per resize block, at most
-constexpr int kTapThreads = 256;  // threads per taps block
-
-struct Norm {
-    float mean[3];
-    float std[3];
-    float inv[3];  // correctly rounded 1/std
-    int on;
-    int uniform;   // the three channels share mean and std
-};
-
-__host__ __device__ __forceinline__ size_t align16(size_t x) {
-    return (x + 15) & ~static_cast<size_t>(15);
-}
-
-// a / b correctly rounded, given inv = RN(1/b): q = RN(a*inv) is within an
-// ulp, the remainder a - q*b is exact in one FMA, and one more FMA rounds
-// q + rem*inv to RN(a/b) (Markstein). a, b finite and normal or zero.
-__device__ __forceinline__ float div_rn(float a, float b, float inv) {
-    const float q = a * inv;
-    return fmaf(fmaf(-q, b, a), inv, q);
-}
-
-__device__ __forceinline__ int clamp_size(int v, int S) {
-    return min(max(v, 0), S);
-}
-
-// An axis of true extent src resampled to r, and the untrimmed window
-// [lo, hi] of its output index i (one index of margin at each end). The
-// taps kernel and the resize kernel's canvas prefetch use the same float
-// operations, so the trimmed taps always lie inside the window.
-struct Axis {
-    int src;
-    float scale, fscale;
-};
-
-__device__ __forceinline__ Axis axis_of(int src, int r) {
-    Axis a;
-    a.src = src;
-    a.scale = (float)src / (float)r;
-    a.fscale = fmaxf(a.scale, 1.0f);
-    return a;
-}
-
-struct Window {
-    float center;
-    int lo, hi;
-};
-
-__device__ __forceinline__ Window window(int i, const Axis& a) {
-    Window win;
-    win.center = ((float)i + 0.5f) * a.scale;
-    win.lo = max((int)floorf(win.center - a.fscale - 0.5f) - 1, 0);
-    win.hi = min((int)ceilf(win.center + a.fscale - 0.5f) + 1, a.src - 1);
-    return win;
-}
-
-// Weight of canvas index j before the row is normalised. |d| >= fscale
-// gives 1 - |d|/fscale <= 0, so no division is needed there; fscale = 1
-// (upsampling) divides exactly by nothing.
-__device__ __forceinline__ float tap_weight(int j, const Window& win,
-                                            const Axis& a, float inv_f) {
-    const float d = fabsf((float)j + 0.5f - win.center);
-    if (!(d < a.fscale)) return 0.0f;
-    const float q = a.fscale == 1.0f ? d : div_rn(d, a.fscale, inv_f);
-    return fmaxf(0.0f, 1.0f - q);
-}
-
-// byte k of v as a float, exactly: 2^23 + byte, minus 2^23
-__device__ __forceinline__ float byte_to_float(uint32_t v, int k) {
-    return __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540u | k))
-           - 8388608.0f;
-}
-
-__device__ __forceinline__ float normalise(float v, const Norm& nm, int c) {
-    return div_rn(v - nm.mean[c], nm.std[c], nm.inv[c]);
-}
-
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned s =
-        static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(s), "l"(gmem));
-}
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem) {
-    const unsigned s =
-        static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
-                 :: "r"(s), "l"(gmem), "n"(kBytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// 1. one thread per window (b, axis, i); g = (b*2 + axis)*r + i
-__global__ void __launch_bounds__(kTapThreads)
-preprocess_gray_taps(const int32_t* __restrict__ sizes,
-                     int2* __restrict__ lo_n, float* __restrict__ wt,
-                     int B, int S, int r, int T) {
-    // the resize kernel may launch now; it waits for this grid's tables
-    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-    const unsigned nwin = (unsigned)B * 2u * (unsigned)r;
-    const unsigned g = blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= nwin) return;
-    const unsigned ba = g / r;  // b*2 + axis
-    const int i = (int)(g - ba * r);
-    const Axis ax = axis_of(clamp_size(sizes[ba], S), r);
-    const Window win = window(i, ax);
-    const float inv_f = 1.0f / ax.fscale;
-    const int n = min(max(win.hi - win.lo + 1, 0), T + 5);
-    float sum = 0.0f;
-    for (int k = 0; k < n; ++k) sum += tap_weight(win.lo + k, win, ax, inv_f);
-    sum = fmaxf(sum, 1e-9f);
-    const float inv_sum = 1.0f / sum;
-    float* w = wt + (size_t)ba * T * r + i;  // tap k at w[k * r]
-    int first = 0, kept = 0;
-    for (int k = 0; k < n; ++k) {
-        const float wk = tap_weight(win.lo + k, win, ax, inv_f);
-        const float wn = wk > 0.0f ? div_rn(wk, sum, inv_sum) : 0.0f;
-        if (wn != 0.0f) {  // the positive taps are contiguous
-            if (kept == 0) first = win.lo + k;
-            if (kept < T) w[(size_t)kept * r] = wn;
-            ++kept;
-        }
-    }
-    for (int k = kept; k < T; ++k) w[(size_t)k * r] = 0.0f;
-    lo_n[g] = make_int2(first, min(kept, T));
-}
-
-// Byte offsets of the resize kernel's dynamic shared memory, the same on
-// the host (to size it) and on the device. Sp = S rounded up to 16.
-struct Smem {
-    size_t stage, tmp, canvas, hw, hln, vw, vln, total;
-};
-
-__host__ __device__ __forceinline__ Smem smem_layout(int kStep, int Sp,
-                                                     int r, int T,
-                                                     int rows_cap,
-                                                     int out_bytes) {
-    Smem m;
-    size_t o = 0;
-    m.stage = o;  o = align16(o + (size_t)kStep * r * 3 * out_bytes + 16);
-    m.tmp = o;    o = align16(o + (size_t)kStep * Sp * sizeof(float));
-    m.canvas = o; o = align16(o + (size_t)rows_cap * Sp);
-    m.hw = o;     o = align16(o + (size_t)T * r * sizeof(float));
-    m.hln = o;    o = align16(o + (size_t)r * sizeof(int2));
-    m.vw = o;     o = align16(o + (size_t)kStep * T * sizeof(float));
-    m.vln = o;    o = align16(o + (size_t)kStep * sizeof(int2));
-    m.total = o;
-    return m;
-}
-
-// Canvas rows that kStep consecutive untrimmed windows span: from
-// floor(c0 - f - 0.5) - 1 to ceil(c1 + f - 0.5) + 1 with
-// c1 - c0 = (kStep-1)*scale, i.e. at most (kStep-1)*scale + 2*fscale + 5
-// rows, plus one for the rounding of the centers.
-int rows_capacity(int kStep, int S, int r) {
-    const float smax = (float)S / (float)r;
-    return (int)ceilf((float)(kStep - 1) * smax + 2.0f * fmaxf(smax, 1.0f))
-           + 6;
-}
 
 // A work item of the resize kernel: kStep output rows from i0 of image b,
 // and the canvas rows [ymin, ymin + nrows) that their vertical windows
@@ -449,97 +277,22 @@ preprocess_gray_resize(const uint8_t* __restrict__ canvas,
     }
 }
 
-cudaError_t launch_taps(const int32_t* sizes, int2* lo_n, float* wt, int B,
-                        int S, int r, int T, cudaStream_t stream) {
-    const long long nwin = (long long)B * 2 * r;
-    if (nwin >= (1LL << 31)) return cudaErrorInvalidValue;
-    const long long blocks = (nwin + kTapThreads - 1) / kTapThreads;
-    preprocess_gray_taps<<<(unsigned)blocks, kTapThreads, 0, stream>>>(
-        sizes, lo_n, wt, B, S, r, T);
-    return cudaGetLastError();
-}
-
-// The resize kernel's launch shape: rows per item, dynamic shared memory
-// per block, threads (one per output column, r rounded up to whole warps),
-// the blocks that fit on one SM at once, and the SMs. It depends on the
-// device, the output dtype, S, r and T only, so it is computed once per
-// such key and cached; the grid follows from B.
-struct Shape {
-    int step, rows_cap, threads, per_sm, sms;
-    size_t smem;
-};
-
 template <typename OutT, int kStep>
 cudaError_t resize_shape(int dev, int S, int r, int T, Shape* sh) {
     sh->step = kStep;
     sh->rows_cap = rows_capacity(kStep, S, r);
     sh->smem = smem_layout(kStep, (S + 15) & ~15, r, T, sh->rows_cap,
                            (int)sizeof(OutT)).total;
-    sh->threads = min(kMaxThreads, max(64, (r + 31) / 32 * 32));
-    auto kernel = preprocess_gray_resize<OutT, kStep>;
-    int optin = 0;
-    cudaError_t e;
-    if ((e = cudaDeviceGetAttribute(&sh->sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess) return e;
-    if ((e = cudaDeviceGetAttribute(
-             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
-        != cudaSuccess) return e;
-    if (sh->smem > (size_t)optin) return cudaErrorInvalidValue;
-    // the card's largest, so that no other cached shape of this kernel on
-    // this device needs it set again
-    if ((e = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin))
-        != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &sh->per_sm, kernel, sh->threads, sh->smem);
+    return fill_shape(preprocess_gray_resize<OutT, kStep>, dev, r, sh);
 }
 
+// 16 rows per item at S <= 512, 8 above
 template <typename OutT>
 cudaError_t shape_for(int S, int r, int T, Shape* sh) {
-    static std::mutex mu;
-    static std::map<std::tuple<int, int, int, int>, Shape> cache;
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    const auto key = std::make_tuple(dev, S, r, T);
-    std::lock_guard<std::mutex> lock(mu);
-    const auto it = cache.find(key);
-    if (it != cache.end()) {
-        *sh = it->second;
-        return cudaSuccess;
-    }
-    e = S <= 512 ? resize_shape<OutT, 16>(dev, S, r, T, sh)
-                 : resize_shape<OutT, 8>(dev, S, r, T, sh);
-    if (e == cudaSuccess) cache.emplace(key, *sh);
-    return e;
-}
-
-// one wave of blocks, and no more blocks than work items
-long long grid_of(const Shape& sh, int B, int r) {
-    const long long items = (long long)B * ((r + sh.step - 1) / sh.step);
-    const long long wave = (long long)sh.sms * max(sh.per_sm, 1);
-    return wave < items ? wave : items;
-}
-
-template <typename OutT, int kStep>
-cudaError_t launch_resize_step(const uint8_t* canvas, const int32_t* sizes,
-                               const int2* lo_n, const float* wt, void* out,
-                               int B, int S, int r, int T, const Norm& nm,
-                               const Shape& sh, cudaStream_t stream) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)grid_of(sh, B, r));
-    cfg.blockDim = dim3(sh.threads);
-    cfg.dynamicSmemBytes = sh.smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, preprocess_gray_resize<OutT, kStep>,
-                              canvas, sizes, lo_n, wt,
-                              reinterpret_cast<OutT*>(out), B, S, r, T,
-                              sh.rows_cap, nm);
+    return cached_shape<OutT>(S, r, T, sh, [&](int dev, Shape* out) {
+        return S <= 512 ? resize_shape<OutT, 16>(dev, S, r, T, out)
+                        : resize_shape<OutT, 8>(dev, S, r, T, out);
+    });
 }
 
 template <typename OutT>
@@ -550,11 +303,14 @@ cudaError_t launch_resize(const uint8_t* canvas, const int32_t* sizes,
     Shape sh;
     cudaError_t e = shape_for<OutT>(S, r, T, &sh);
     if (e != cudaSuccess) return e;
+    OutT* o = reinterpret_cast<OutT*>(out);
     return sh.step == 16
-        ? launch_resize_step<OutT, 16>(canvas, sizes, lo_n, wt, out, B, S,
-                                       r, T, nm, sh, stream)
-        : launch_resize_step<OutT, 8>(canvas, sizes, lo_n, wt, out, B, S, r,
-                                      T, nm, sh, stream);
+        ? launch_dependent(preprocess_gray_resize<OutT, 16>, sh, B, r,
+                           stream, canvas, sizes, lo_n, wt, o, B, S, r, T,
+                           sh.rows_cap, nm)
+        : launch_dependent(preprocess_gray_resize<OutT, 8>, sh, B, r,
+                           stream, canvas, sizes, lo_n, wt, o, B, S, r, T,
+                           sh.rows_cap, nm);
 }
 
 }  // namespace

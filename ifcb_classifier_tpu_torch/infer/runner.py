@@ -96,7 +96,7 @@ class InferenceEngine:
             resolve_dtype(None, self.device)
 
         name = hparams["MODEL"]
-        # the aux head runs only in training (ROADMAP P5)
+        # the aux head runs only in training: the served model has none
         sd = {k: v for k, v in params_from_jax(params, batch_stats).items()
               if not k.startswith("AuxLogits.")}
         # eval-time BN folding (models/fold.py): exact algebra on the frozen

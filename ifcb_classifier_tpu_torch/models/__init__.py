@@ -1,5 +1,6 @@
-"""Model zoo of the port. Only inception_v3 is ported so far; every other
-family the JAX package serves raises, naming the ROADMAP item that ports it.
+"""Model zoo of the port. Only inception_v3 is ported so far (served and
+trained); every other family the JAX package serves raises, naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -24,14 +25,18 @@ def input_size_for(model_name: str) -> int:
 
 
 def get_namebrand_model(model_name: str, num_o_classes: int,
-                        pretrained: bool = False, fold_bn: bool = False):
-    """name → nn.Module with a ``num_o_classes``-way head (eval-only for
-    now). ``pretrained`` carries torchvision's transform_input rule for
-    inception_v3. Raises KeyError for unknown names, like the reference."""
+                        pretrained: bool = False, fold_bn: bool = False,
+                        train: bool = False):
+    """name → nn.Module with a ``num_o_classes``-way head. ``pretrained``
+    carries torchvision's transform_input rule for inception_v3; ``train``
+    builds inception's aux head (the model TRAIN trains and checkpoints;
+    serving builds it without). Raises KeyError for unknown names, like
+    the reference."""
     if model_name == "inception_v3":
         from .inception import InceptionV3
         return InceptionV3(num_classes=num_o_classes,
-                           transform_input=bool(pretrained), fold=fold_bn)
+                           transform_input=bool(pretrained), fold=fold_bn,
+                           aux_logits=train)
     if model_name in MODEL_FAMILIES:
         raise NotImplementedError(
             f"{model_name!r} is not ported yet (ROADMAP P7: the other "

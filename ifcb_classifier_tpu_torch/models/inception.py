@@ -1,15 +1,18 @@
 """Inception-v3 in PyTorch with torchvision's module names (the port's
 counterpart of ifcb_classifier_tpu/models/inception.py).
 
-Eval mode returns logits. ``fold=True`` builds the eval-only variant whose
-BatchNorms were folded into the convolutions (models/fold.py): each conv
-carries a bias and the BN module is absent. ``transform_input`` is
-torchvision's pretrained-mode channel renormalisation. The JAX package's
-space-to-depth stem is a TPU layout trick, exactly equal to the plain
-stride-2 conv used here, and is not ported.
-
-The aux head runs only in training, which comes with the TRAIN slice
-(ROADMAP P5); it is not built here, and the engine drops its weights.
+Eval mode returns f32 logits; training mode returns the f32 tuple
+(logits, aux logits), whose loss is main + 0.4 * aux (train/state.py).
+The aux head (``aux_logits=True``, what TRAIN builds) runs only in
+training; the serving engine builds the model without it and drops its
+weights. ``fold=True`` builds the eval-only variant whose BatchNorms were
+folded into the convolutions (models/fold.py): each conv carries a bias
+and the BN module is absent; it raises in training, as in the JAX package.
+``transform_input`` is torchvision's pretrained-mode channel
+renormalisation. Dropout (p = ``dropout_rate``) before ``fc`` draws from
+torch's generator, not JAX's key. The JAX package's space-to-depth stem
+is a TPU layout trick, exactly equal to the plain stride-2 conv used here,
+and is not ported.
 """
 
 from __future__ import annotations
@@ -162,15 +165,31 @@ class InceptionE(nn.Module):
             self.branch_pool(avg_pool(x, 3, 1, 1))], 1)
 
 
+class InceptionAux(nn.Module):
+    """torchvision's aux head (inception.py:214-225 of the JAX package):
+    avg_pool 5/3 unpadded, conv0 1x1, conv1 5x5, global pool, fc."""
+
+    def __init__(self, i, num_classes, fold=False):
+        super().__init__()
+        self.conv0 = BasicConv2d(i, 128, fold, kernel_size=1)
+        self.conv1 = BasicConv2d(128, 768, fold, kernel_size=5)
+        self.fc = nn.Linear(768, num_classes)
+
+    def forward(self, x):
+        x = self.conv1(self.conv0(avg_pool(x, 5, 3)))
+        return self.fc(global_avg_pool(x))
+
+
 class InceptionV3(nn.Module):
     """Takes NCHW images (channels_last memory is the fast form on the
-    card) and returns f32 logits in eval."""
+    card); see the module docstring for what it returns."""
 
     def __init__(self, num_classes=1000, transform_input=False,
-                 fold=False):
+                 fold=False, aux_logits=False, dropout_rate=0.5):
         super().__init__()
         self.transform_input = transform_input
         self.fold = fold
+        self.dropout_rate = dropout_rate
         f = fold
         self.Conv2d_1a_3x3 = BasicConv2d(3, 32, f, kernel_size=3, stride=2)
         self.Conv2d_2a_3x3 = BasicConv2d(32, 32, f, kernel_size=3)
@@ -185,16 +204,17 @@ class InceptionV3(nn.Module):
         self.Mixed_6c = InceptionC(768, 160, f)
         self.Mixed_6d = InceptionC(768, 160, f)
         self.Mixed_6e = InceptionC(768, 192, f)
+        self.AuxLogits = InceptionAux(768, num_classes, f) if aux_logits \
+            else None
         self.Mixed_7a = InceptionD(768, f)
         self.Mixed_7b = InceptionE(1280, f)
         self.Mixed_7c = InceptionE(2048, f)
         self.fc = nn.Linear(2048, num_classes)
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "inception_v3 training is not ported yet (ROADMAP P5); "
-                "call .eval()")
+        if self.fold and self.training:
+            raise ValueError("fold_bn model is eval-only (BN is folded "
+                             "into conv weights with frozen stats)")
         if self.transform_input:
             x = transform_input_renorm(x)
         x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
@@ -204,6 +224,20 @@ class InceptionV3(nn.Module):
         x = self.Mixed_5d(self.Mixed_5c(self.Mixed_5b(x)))
         x = self.Mixed_6e(self.Mixed_6d(self.Mixed_6c(self.Mixed_6b(
             self.Mixed_6a(x)))))
+        aux = None
+        if self.AuxLogits is not None and self.training:
+            # the aux tower (avg_pool 5/3, then an unpadded 5x5 conv) has a
+            # positive extent only when Mixed_6e is >= 17x17, i.e. inputs
+            # >= 299x299 (inception.py:273-280 of the JAX package)
+            if x.shape[2] < 17 or x.shape[3] < 17:
+                raise ValueError(
+                    "inception_v3 training with aux head requires 299x299 "
+                    f"inputs (Mixed_6e got {x.shape[2]}x{x.shape[3]}, "
+                    "needs >=17x17)")
+            aux = self.AuxLogits(x)
         x = self.Mixed_7c(self.Mixed_7b(self.Mixed_7a(x)))
-        # dropout is the identity in eval
-        return self.fc(global_avg_pool(x)).float()
+        x = F.dropout(global_avg_pool(x), self.dropout_rate, self.training)
+        x = self.fc(x).float()
+        if aux is not None:
+            return x, aux.float()
+        return x

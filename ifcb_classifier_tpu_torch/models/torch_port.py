@@ -10,7 +10,9 @@ Layout rules, JAX tree → torch state dict:
 
 Inception's module names are torchvision's verbatim, with the BasicConv2d
 ``conv``/``bn`` level kept, so a tree path joined with '.' is the state-dict
-key. Folded trees (conv kernel + bias, no bn) map by the same rules.
+key; the aux head (``AuxLogits``, trained by TRAIN) carries across by the
+same rules both ways. Folded trees (conv kernel + bias, no bn) map by the
+same rules.
 """
 
 from __future__ import annotations

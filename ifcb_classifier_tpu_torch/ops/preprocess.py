@@ -1,5 +1,6 @@
 """Device preprocessing of grayscale ROI canvases (the gray branch of
-ifcb_classifier_tpu/ops/preprocess.py).
+ifcb_classifier_tpu/ops/preprocess.py) and of RGB image canvases (its RGB
+branch, below).
 
   uint8 canvas [B,S,S] + per-image true (h, w)
     → per-image separable PIL-BILINEAR resize to (r, r)
@@ -27,6 +28,13 @@ the two can be held against each other.
 ``preprocess_gray`` picks by where the canvas lies: the plain version for a
 CPU tensor, the kernel for any other; it never falls back from one to the
 other.
+
+The RGB branch (TRAIN's decoded images) is the same function over a
+uint8 [B,S,S,3] canvas with per-channel norm and per-image flips (an
+explicit [B,2] mask, drawn by the caller): ``preprocess_rgb_cuda`` is
+kernel K2 (``csrc/preprocess_rgb.cu``, K1's design for three channels),
+``preprocess_rgb_plain`` its plain version, ``preprocess_rgb`` the
+dispatcher, with the same rules.
 """
 
 from __future__ import annotations
@@ -44,10 +52,15 @@ from .._build import build_shared_library
 
 __all__ = ["resize_weights", "tap_count", "tap_tables_plain",
            "tap_tables_cuda", "preprocess_gray", "preprocess_gray_plain",
-           "preprocess_gray_cuda", "build_k1", "k1_resize_shape"]
+           "preprocess_gray_cuda", "build_k1", "k1_resize_shape",
+           "preprocess_rgb", "preprocess_rgb_plain", "preprocess_rgb_cuda",
+           "build_k2", "k2_resize_shape"]
 
-_K1_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "preprocess_gray.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+_K1_SRC = os.path.join(_CSRC, "preprocess_gray.cu")
+_K2_SRC = os.path.join(_CSRC, "preprocess_rgb.cu")
+_COMMON_H = os.path.join(_CSRC, "preprocess_common.cuh")
 
 
 def resize_weights(src_size, canvas_size: int, out_size: int, device=None):
@@ -167,16 +180,20 @@ def _nvcc() -> str:
     return found
 
 
+def _nvcc_command():
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v"]
+
+
 def build_k1():
     """Build (once) and load K1; returns (ctypes library, compiler output,
     which holds ptxas's register and shared-memory report)."""
     global _k1
     if _k1 is None:
         so, log = build_shared_library(
-            "k1_preprocess_gray", [_K1_SRC],
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v"])
+            "k1_preprocess_gray", [_K1_SRC], _nvcc_command(),
+            headers=[_COMMON_H])
         lib = ctypes.CDLL(so)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         f32p = ctypes.POINTER(ctypes.c_float)
@@ -209,12 +226,43 @@ def k1_resize_shape(B, canvas_size, out_size, dtype=torch.bfloat16):
 
 def _check_sizes(sizes, B, device):
     if not (sizes.is_cuda and sizes.device == device):
-        raise ValueError("K1 needs canvas and sizes on one CUDA device "
+        raise ValueError("K1/K2 need canvas and sizes on one CUDA device "
                          f"(got {device} and {sizes.device})")
     if sizes.dtype != torch.int32 or tuple(sizes.shape) != (B, 2) \
             or not sizes.is_contiguous():
-        raise ValueError(f"K1 needs contiguous int32 sizes [{B},2] (got "
+        raise ValueError(f"K1/K2 need contiguous int32 sizes [{B},2] (got "
                          f"{sizes.dtype} {tuple(sizes.shape)})")
+
+
+def _check_launch(name, canvas, channels, sizes, out_size, dtype, mean,
+                  std):
+    """What K1 (channels ()) and K2 (channels (3,)) take: a contiguous
+    uint8 [B,S,S,*channels] CUDA canvas with S a multiple of 16 and 16-byte
+    aligned data (they load it in 16-byte pieces), contiguous int32 sizes
+    [B,2] on its device, bf16 or f32 output, a positive out_size."""
+    if not canvas.is_cuda:
+        raise ValueError(f"{name} needs canvas and sizes on one CUDA device "
+                         f"(got {canvas.device} and {sizes.device})")
+    shape = "[B,S,S{}]".format("".join(f",{c}" for c in channels))
+    if canvas.dtype != torch.uint8 or canvas.ndim != 3 + len(channels) \
+            or canvas.shape[1] != canvas.shape[2] \
+            or tuple(canvas.shape[3:]) != channels:
+        raise ValueError(f"{name} needs a uint8 {shape} canvas (got "
+                         f"{canvas.dtype} {tuple(canvas.shape)})")
+    S = canvas.shape[1]
+    _check_sizes(sizes, canvas.shape[0], canvas.device)
+    if not canvas.is_contiguous():
+        raise ValueError(f"{name} needs contiguous canvas and sizes")
+    if S % 16 or canvas.data_ptr() % 16:
+        raise ValueError(f"{name} loads the canvas in 16-byte pieces: it "
+                         f"needs S a multiple of 16 (got {S}) and a 16-byte "
+                         "aligned canvas (got address "
+                         f"{canvas.data_ptr():#x})")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} writes bf16 or f32, not {dtype}")
+    if out_size < 1:
+        raise ValueError(f"out_size must be positive (got {out_size})")
+    _check_norm(mean, std)
 
 
 def _tap_scratch(B, S, r, device):
@@ -262,26 +310,8 @@ def preprocess_gray_cuda(canvas, sizes, *, out_size, mean=None, std=None,
     stream without synchronising. Sizes outside [0, S] are outside the
     contract (the engine never sends them); the kernel clamps them, so
     they cannot make it leave its buffers."""
-    if not canvas.is_cuda:
-        raise ValueError("K1 needs canvas and sizes on one CUDA device "
-                         f"(got {canvas.device} and {sizes.device})")
-    if canvas.dtype != torch.uint8 or canvas.ndim != 3 \
-            or canvas.shape[1] != canvas.shape[2]:
-        raise ValueError("K1 needs a uint8 [B,S,S] canvas (got "
-                         f"{canvas.dtype} {tuple(canvas.shape)})")
+    _check_launch("K1", canvas, (), sizes, out_size, dtype, mean, std)
     B, S = canvas.shape[0], canvas.shape[1]
-    _check_sizes(sizes, B, canvas.device)
-    if not canvas.is_contiguous():
-        raise ValueError("K1 needs contiguous canvas and sizes")
-    if S % 16 or canvas.data_ptr() % 16:
-        raise ValueError("K1 loads the canvas in 16-byte pieces: it needs S "
-                         f"a multiple of 16 (got {S}) and a 16-byte aligned "
-                         f"canvas (got address {canvas.data_ptr():#x})")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"K1 writes bf16 or f32, not {dtype}")
-    if out_size < 1:
-        raise ValueError(f"out_size must be positive (got {out_size})")
-    _check_norm(mean, std)
     out = torch.empty((B, out_size, out_size, 3), dtype=dtype,
                       device=canvas.device)
     if B == 0:
@@ -313,3 +343,133 @@ def preprocess_gray(canvas, sizes, *, out_size, mean=None, std=None,
         else preprocess_gray_cuda
     return fn(canvas, sizes, out_size=out_size, mean=mean, std=std,
               dtype=dtype)
+
+
+# ------------------------------------------------------------------ K2 ---
+
+def _flip_mask_or_none(flips, B):
+    """flips: None or a bool/uint8 [B,2] mask (rows, columns). Returns a
+    uint8 mask or None when nothing flips."""
+    if flips is None:
+        return None
+    if tuple(flips.shape) != (B, 2):
+        raise ValueError(f"flips must be [{B},2] (got {tuple(flips.shape)})")
+    return flips.to(torch.uint8)
+
+
+def preprocess_rgb_plain(canvas, sizes, *, out_size, mean=None, std=None,
+                         flips=None, dtype=torch.float32):
+    """Plain PyTorch version of K2 (the RGB branch of the JAX package's
+    preprocess_batch, ops/preprocess.py:57-84, :110-121): canvas uint8
+    [B,S,S,3], sizes int32 [B,2], flips None or a [B,2] mask (column 0
+    flips rows — the reference's --flip x —, column 1 columns) →
+    [B,out_size,out_size,3] in ``dtype``. It is the CPU path and K2's
+    oracle."""
+    _check_norm(mean, std)
+    B, S = canvas.shape[0], canvas.shape[1]
+    r = out_size
+    wh = resize_weights(sizes[:, 0], S, r, device=canvas.device)  # [B,r,S]
+    ww = resize_weights(sizes[:, 1], S, r, device=canvas.device)  # [B,r,S]
+    x = torch.matmul(wh, canvas.to(torch.float32).reshape(B, S, S * 3))
+    x = x.reshape(B, r, S, 3).transpose(2, 3).reshape(B, r * 3, S)
+    x = torch.matmul(x, ww.transpose(1, 2))                    # [B,3r,r]
+    x = x.reshape(B, r, 3, r).transpose(2, 3)                  # [B,r,r,3]
+    x = torch.clamp(x * (1.0 / 255.0), 0.0, 1.0)
+    if mean is not None:
+        m = torch.tensor(mean, dtype=torch.float32, device=canvas.device)
+        s = torch.tensor(std, dtype=torch.float32, device=canvas.device)
+        x = (x - m) / s
+    flips = _flip_mask_or_none(flips, B)
+    if flips is not None:
+        fx = flips[:, 0].bool()[:, None, None, None]
+        fy = flips[:, 1].bool()[:, None, None, None]
+        x = torch.where(fx, x.flip(1), x)
+        x = torch.where(fy, x.flip(2), x)
+    return x.to(dtype).contiguous()
+
+
+_k2 = None  # (ctypes library, compiler output), built at first launch
+
+
+def build_k2():
+    """Build (once) and load K2; returns (ctypes library, compiler
+    output)."""
+    global _k2
+    if _k2 is None:
+        so, log = build_shared_library(
+            "k2_preprocess_rgb", [_K2_SRC], _nvcc_command(),
+            headers=[_COMMON_H])
+        lib = ctypes.CDLL(so)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.k2_preprocess_rgb.restype = i32
+        lib.k2_preprocess_rgb.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32p, f32p, ptr,
+            ptr, i32, ptr]
+        lib.k2_resize_shape.restype = i32
+        lib.k2_resize_shape.argtypes = [i32, i32, i32, i32, i32,
+                                        ctypes.POINTER(ctypes.c_int)]
+        _k2 = (lib, log)
+    return _k2
+
+
+def k2_resize_shape(B, canvas_size, out_size, dtype=torch.bfloat16):
+    """K2's resize launch shape, as ``k1_resize_shape`` gives K1's."""
+    lib, _ = build_k2()
+    shape = (ctypes.c_int * 5)()
+    err = lib.k2_resize_shape(B, canvas_size, out_size,
+                              tap_count(canvas_size, out_size),
+                              int(dtype == torch.bfloat16), shape)
+    if err != 0:
+        raise RuntimeError(f"K2 resize shape failed with cudaError_t {err}")
+    return tuple(shape)
+
+
+def preprocess_rgb_cuda(canvas, sizes, *, out_size, mean=None, std=None,
+                        flips=None, dtype=torch.bfloat16):
+    """K2 on the card: same contract as ``preprocess_rgb_plain``, for a
+    uint8 [B,S,S,3] canvas whose S is a multiple of 16 and whose data is
+    16-byte aligned (every rung of the ladder, from the allocator). The
+    output and the tap-table scratch are allocated here; both kernels
+    launch on the current stream without synchronising. Counts its calls
+    in ``preprocess_rgb_cuda.launches``."""
+    _check_launch("K2", canvas, (3,), sizes, out_size, dtype, mean, std)
+    B, S = canvas.shape[0], canvas.shape[1]
+    flips = _flip_mask_or_none(flips, B)
+    if flips is not None:
+        if flips.device != canvas.device:
+            raise ValueError(f"K2 needs flips on {canvas.device} (got "
+                             f"{flips.device})")
+        flips = flips.contiguous()
+    out = torch.empty((B, out_size, out_size, 3), dtype=dtype,
+                      device=canvas.device)
+    if B == 0:
+        return out
+    lib, _ = build_k2()
+    scratch, lo_n, wt, T = _tap_scratch(B, S, out_size, canvas.device)
+    has_norm = mean is not None
+    c_mean = (ctypes.c_float * 3)(*(mean if has_norm else (0.0,) * 3))
+    c_std = (ctypes.c_float * 3)(*(std if has_norm else (1.0,) * 3))
+    with torch.cuda.device(canvas.device):
+        err = lib.k2_preprocess_rgb(
+            canvas.data_ptr(), sizes.data_ptr(),
+            None if flips is None else flips.data_ptr(), out.data_ptr(), B,
+            S, out_size, int(dtype == torch.bfloat16), int(has_norm),
+            c_mean, c_std, lo_n, wt, T, _stream(canvas.device))
+    del scratch, flips  # freed after the launch: the allocator orders reuse
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed with cudaError_t {err}")
+    preprocess_rgb_cuda.launches += 1
+    return out
+
+
+preprocess_rgb_cuda.launches = 0
+
+
+def preprocess_rgb(canvas, sizes, *, out_size, mean=None, std=None,
+                   flips=None, dtype=torch.float32):
+    """The plain version for a CPU canvas, K2 for any other."""
+    fn = preprocess_rgb_plain if canvas.device.type == "cpu" \
+        else preprocess_rgb_cuda
+    return fn(canvas, sizes, out_size=out_size, mean=mean, std=std,
+              flips=flips, dtype=dtype)

@@ -15,6 +15,14 @@ nil and ext. (flax splits a leaf over 1 GiB into chunks; no model here has
 one.)
 
 Lightning ``.ptl`` checkpoints of the reference are read by a later slice.
+
+The resume state ``chkpts/last.state`` (save_train_state) is the port's
+own format, deliberately not the JAX package's: the same codec and
+params/batch_stats trees, but the optimizer state as torch keeps it
+(moments per parameter, keyed by the state-dict name, in torch layout, and
+the param groups as JSON) and torch generator states in place of a JAX
+PRNG key. Neither package resumes the other's ``last.state``; both read
+each other's ``.ckpt``/``.ptl``.
 """
 
 from __future__ import annotations
@@ -279,3 +287,76 @@ def load_checkpoint(path: str):
         raise ValueError(f"{path}: not an ifcbnn checkpoint")
     hparams = json.loads(payload["hparams_json"])
     return payload["params"], payload["batch_stats"], hparams
+
+
+# ------------------------------------------------------- resume state ---
+
+TRAINSTATE_TAG = FORMAT_TAG + "-torch-trainstate"
+
+
+def save_train_state(path: str, model, optimizer, extra: dict,
+                     rng_states: dict):
+    """Everything --resume needs, atomically: the model's parameters and
+    BN statistics (the JAX layout of save_checkpoint), the optimizer's
+    moments and param groups, the torch generator states (name → uint8
+    state tensor) and the loop's ``extra`` JSON (epoch, best loss and
+    epoch, best checkpoint path, csv rows, seed)."""
+    from ..models.torch_port import params_to_jax
+    params, stats = params_to_jax(model.state_dict())
+    names = {p: n for n, p in model.named_parameters()}
+    opt = optimizer.state_dict()
+    by_index = dict(enumerate(p for g in optimizer.param_groups
+                              for p in g["params"]))
+    moments = {names[by_index[i]]: {k: v.detach().cpu().numpy()
+                                    for k, v in st.items()}
+               for i, st in opt["state"].items()}
+    payload = {
+        "format": TRAINSTATE_TAG,
+        "extra_json": json.dumps(_jsonable(extra)),
+        "params": params, "batch_stats": stats,
+        "moments": moments,
+        "param_groups_json": json.dumps(opt["param_groups"]),
+        "rng": {k: v.cpu().numpy() for k, v in rng_states.items()},
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_dumps(payload))
+    os.replace(tmp, path)
+
+
+def restore_trainstate_payload(path: str) -> dict:
+    """Read a resume state once (--resume peeks its seed before the model
+    exists, then hands the same payload to load_train_state)."""
+    with open(path, "rb") as f:
+        payload = msgpack_loads(f.read())
+    if not (isinstance(payload, dict)
+            and payload.get("format") == TRAINSTATE_TAG):
+        raise ValueError(f"{path}: not a resume state of the port")
+    return payload
+
+
+def load_train_state(path: str, model, optimizer, payload=None):
+    """Restore the model and optimizer in place from ``path`` (or a payload
+    from restore_trainstate_payload). Returns (extra dict, generator states
+    as uint8 tensors)."""
+    import torch
+
+    from ..models.torch_port import params_from_jax
+    if payload is None:
+        payload = restore_trainstate_payload(path)
+    sd = params_from_jax(payload["params"], payload["batch_stats"])
+    model.load_state_dict(sd, strict=True)
+    index = {n: i for i, (n, _) in enumerate(model.named_parameters())}
+    optimizer.load_state_dict({
+        "state": {index[n]: {k: torch.as_tensor(np.array(v))
+                             for k, v in st.items()}
+                  for n, st in payload["moments"].items()},
+        "param_groups": json.loads(payload["param_groups_json"])})
+    rng = {k: torch.as_tensor(np.array(v, np.uint8))
+           for k, v in payload["rng"].items()}
+    return json.loads(payload["extra_json"]), rng
+
+
+def peek_train_state_extra(path: str) -> dict:
+    """The loop's ``extra`` dict of a resume state, without a model."""
+    return json.loads(restore_trainstate_payload(path)["extra_json"])

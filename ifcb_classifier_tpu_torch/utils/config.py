@@ -9,6 +9,7 @@ never falls back to the CPU.
 from __future__ import annotations
 
 import datetime as dt
+import json
 
 import torch
 
@@ -47,9 +48,15 @@ def resolve_dtype(precision, device) -> torch.dtype:
 
 def add_runtime_params(args):
     """The run's UTC timestamp (neuston_net.py:415-432), which the result
-    files and the outdir template carry."""
+    files and the outdir template carry, and the ``version`` file's tag
+    (None without one)."""
     args.cmd_timestamp = dt.datetime.now(dt.timezone.utc).isoformat(
         timespec="seconds")
+    try:
+        with open("version") as f:
+            args.version = f.read().strip()
+    except FileNotFoundError:
+        args.version = None
     return args
 
 
@@ -67,3 +74,46 @@ def proc_outdir(args, model_id_for_run=None):
         args.outdir = args.outdir.format(VAL_DATE=run_date_str,
                                          VAL_ID=args.VAL_ID)
     return args
+
+
+def hparams_dict(args) -> dict:
+    """The checkpoint-embedded hparams (the reference's
+    save_hyperparameters contract, neuston_models.py:54): the whole args
+    namespace, as the JAX package keeps it."""
+    return vars(args).copy()
+
+
+def _yaml_scalar(v) -> str:
+    """One value as YAML that a YAML 1.1 loader (PyYAML's safe_load) reads
+    back as the same Python value: JSON for strings, ints and lists, with
+    floats spelled with a dot (``1.0e-05``, which YAML 1.1 needs to read a
+    float) and inf/nan as ``.inf``/``.nan``."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        mant, _, exp = text.partition("e")
+        if "." not in mant:
+            mant += ".0"
+        return mant + ("e" + exp if exp else "")
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_scalar(x) for x in v) + "]"
+    return json.dumps(str(v))
+
+
+def dump_args_yml(args, path):
+    """The args.yml contract (neuston_net.py:126-129): one ``key: value``
+    line per argument, sorted by key. Written without PyYAML (the GPU
+    machine may lack it); the keys and values are those of the JAX
+    package's yaml.safe_dump of the same namespace."""
+    with open(path, "w") as f:
+        for k, v in sorted(vars(args).items()):
+            f.write(f"{k}: {_yaml_scalar(v)}\n")

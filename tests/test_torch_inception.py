@@ -138,7 +138,13 @@ def test_other_families_name_their_roadmap_item():
 
 
 def test_eval_only_for_now(trees):
+    """Training is ported; what stays eval-only is the BN-folded model, and
+    the aux head refuses inputs under 299 px (Mixed_6e < 17x17), as in the
+    JAX package."""
     from ifcb_classifier_tpu_torch.models import get_namebrand_model
-    model = get_namebrand_model("inception_v3", N_CLASSES)
-    with pytest.raises(NotImplementedError, match="P5"):
-        model.train()(torch.zeros(1, 3, SIZE, SIZE))
+    folded = get_namebrand_model("inception_v3", N_CLASSES, fold_bn=True)
+    with pytest.raises(ValueError, match="eval-only"):
+        folded.train()(torch.zeros(1, 3, SIZE, SIZE))
+    aux = get_namebrand_model("inception_v3", N_CLASSES, train=True)
+    with pytest.raises(ValueError, match="17x17"):
+        aux.train()(torch.zeros(2, 3, SIZE, SIZE))
