@@ -32,6 +32,19 @@ Phases (any failure exits non-zero and prints no result):
      finite and unreadable canvases are refused. Per rung at B=128, bf16
      with norm and flips, it is timed as K1 is (F.interpolate on the full
      RGB canvas as the yardstick).
+  2c. K3 (csrc/qconv_s8.cu), built beside K1 and K2, is held against its
+     plain version (ops/qconv.qconv_plain: a float64 convolution of the
+     int8 values, exact, then the f32 epilogue) on the card at every
+     distinct conv geometry of inception_v3 @299 (Ci, Co, kernel, stride,
+     pads, H, W, from a shape-only pass of the int8 graph), B=8, inputs
+     from a seed, emitting s8, bf16 and f32: bitwise equal, also when it
+     writes its channels of a wider concat buffer; a CPU tensor and a
+     misaligned one are refused. At B=256 it is timed on five shapes of
+     the main path (ms, device ms, host us per call, bound and what bounds
+     it, the plain version's ms; beside them the bf16 cuDNN conv + bias +
+     relu of the same shape, the float path K3 replaces, and for the 1x1
+     shape torch._int_mm on the same s8 GEMM without an epilogue: neither
+     computes K3's function and the port calls neither).
   3. the RUN path: synthetic IFCB bins (a realistic ROI size mix over the
      64..1024 rungs, one bin of 1,500 ROIs) are classified by
      ``RUN --batch 256`` of the port's CLI with a random-init full-width
@@ -40,6 +53,17 @@ Phases (any failure exits non-zero and prints no result):
      fp32 card result (TF32 off) against the port's CPU path on a small bin
      (scores within 1e-5), and prints the bf16-vs-fp32 score delta and the
      RUN's img/s.
+  3b. ``RUN --batch 256 --precision int8`` of the CLI on the same bins and
+     checkpoint: the engine calibrates on its first dispatch and serves
+     every dispatch in int8. It checks every result file, K1 launches =
+     dispatches, K3 launches = 94 x the int8 dispatches, the int8 scores
+     against phase 3's fp32 ones (max |d p| < 2e-2, the JAX package's
+     int8 gate against full precision, tests/test_quant.py:48; argmax
+     agreement and the int8-vs-bf16 delta printed), and the card against
+     the CPU path at batch 8 on the small bin with the same absmax pinned
+     into both engines and their float parts in f32 (TF32 off): scores
+     within TOL_INT8_CPU, argmax equal. It prints the warm int8 RUN img/s
+     beside the bf16 one and profiles the warm int8 RUN as phase 3 does.
   4. the TRAIN path: ``TRAIN --batch 128`` of the port's CLI: a
      folder-per-class PNG dataset written here (ROI sides drawn as phase 3
      draws them, so the batches land on the rungs a real dataset's do) is
@@ -93,6 +117,23 @@ TRAIN_IMAGES = 160          # per class: 512 train + 128 val images
 TRAIN_BATCH = 128
 TOL_TRAIN_LOSS = 1e-4       # card fp32 vs CPU, relative
 TOL_TRAIN_GRAD = 1e-3       # card fp32 vs f64 truth beyond 3x CPU f32's
+H100_S8_OP_PER_S = 1.979e15  # s8 dense tensor cores
+TOL_INT8_FP32 = 2e-2        # int8 vs fp32 scores (tests/test_quant.py:48)
+# card vs CPU int8 scores with one pinned absmax: about twice the change
+# that +-1e-5 noise on the CPU's preprocessed images makes (9.4e-3 on this
+# checkpoint's small bin): a few inputs land one s8 step apart and the
+# steps grow through the 94 requantized layers
+TOL_INT8_CPU = 2e-2
+K3_CONVS = 94
+K3_BATCH = 256
+# (name, Ci, Co, kh, kw, stride, pads, H): the shapes phase 2c times
+K3_SHAPES = (
+    ("Conv2d_2b_3x3", 32, 64, 3, 3, 1, ((1, 1), (1, 1)), 147),
+    ("Conv2d_4a_3x3", 80, 192, 3, 3, 1, ((0, 0), (0, 0)), 73),
+    ("Mixed_5b/branch1x1", 192, 64, 1, 1, 1, ((0, 0), (0, 0)), 35),
+    ("Mixed_6b/branch7x7_2", 128, 128, 1, 7, 1, ((0, 0), (3, 3)), 17),
+    ("Mixed_7b/branch3x3dbl_2", 448, 384, 3, 3, 1, ((1, 1), (1, 1)), 8))
+K3_MAIN = "Conv2d_4a_3x3"  # the kernels line's row: the most operations
 
 
 def card_line():
@@ -474,6 +515,162 @@ def check_k2(rng):
     return rows, max_err
 
 
+def inception_conv_shapes():
+    """The distinct (Ci, Co, kh, kw, stride, pads, H, W) of inception_v3's
+    94 convs at 299 px, from a shape-only pass (meta tensors) of the int8
+    graph's calibration topology, each with the first conv path that has
+    it."""
+    import torch
+    from ifcb_classifier_tpu_torch.models import get_namebrand_model
+    from ifcb_classifier_tpu_torch.models import quant_graph as QG
+    found = {}
+
+    class ShapeCtx(QG._CalibCtx):
+        def conv(self, x, path, stride=1, padding=0, emit="self", dst=None):
+            y = super().conv(x, path, stride, padding, emit, dst)
+            w = self.p[".".join(path) + ".weight"]
+            g = self.geoms[tuple(path)]
+            key = (x.shape[1], w.shape[0], w.shape[2], w.shape[3],
+                   g["strides"][0], g["padding"], x.shape[2], x.shape[3])
+            found.setdefault(key, "/".join(path))
+            return y
+
+    model = get_namebrand_model("inception_v3", N_CLASSES, fold_bn=True)
+    params = {k: v.to("meta") for k, v in model.state_dict().items()}
+    records, geoms = {}, {}
+    QG._graph(ShapeCtx(params, records, geoms, torch.float32),
+              torch.empty((1, R, R, 3), device="meta"), False)
+    if len(geoms) != K3_CONVS:
+        raise AssertionError(f"shape pass saw {len(geoms)} convs")
+    return found
+
+
+def k3_bound(B, H, W, ci, co, kh, kw, Ho, Wo, out_bytes):
+    """(bound ms, 'bytes'|'operations') of one K3 call: its input, weights,
+    scale and bias read once and its output written once at 3.35 TB/s,
+    against 2*M*N*K s8 operations at 1,979 TOPS."""
+    M, K = B * Ho * Wo, kh * kw * ci
+    nbytes = B * H * W * ci + co * K + 8 * co + M * co * out_bytes
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * M * co * K / H100_S8_OP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k3_inputs(B, H, W, ci, co, kh, kw, gen):
+    """s8 x [B,H,W,Ci] and weights [Co,kh,kw,Ci], f32 scale and bias [Co]
+    on the card, from ``gen``; the scale puts acc*scale at O(1), so the
+    s8 emit at inv_out 127/4 spans the grid and clips a little."""
+    import torch
+    x = torch.randint(-127, 128, (B, H, W, ci), dtype=torch.int8,
+                      generator=gen)
+    w = torch.randint(-127, 128, (co, kh, kw, ci), dtype=torch.int8,
+                      generator=gen)
+    std = 127.0 * 127.0 / 3.0 * (kh * kw * ci) ** 0.5
+    scale = (0.5 + torch.rand(co, generator=gen)) / std
+    bias = 0.5 * torch.randn(co, generator=gen)
+    return tuple(t.cuda() for t in (x, w, scale, bias))
+
+
+K3_INV_OUT = 127.0 / 4.0
+
+
+def check_k3():
+    """Phase 2c. Returns (timing rows of K3_SHAPES, number of geometries
+    checked)."""
+    import torch
+    import torch.nn.functional as F
+    from ifcb_classifier_tpu_torch.ops.qconv import (
+        conv_out_size, qconv_cuda, qconv_plain)
+    gen = torch.Generator().manual_seed(4)
+    shapes = inception_conv_shapes()
+    for (ci, co, kh, kw, st, pads, H, W), path in sorted(shapes.items()):
+        x, w, scale, bias = k3_inputs(8, H, W, ci, co, kh, kw, gen)
+        stride = (st, st)
+        for inv, dtype in ((K3_INV_OUT, torch.int8), (None, torch.bfloat16),
+                           (None, torch.float32)):
+            got = qconv_cuda(x, w, scale, bias, stride, pads, inv,
+                             out_dtype=dtype)
+            torch.cuda.synchronize()
+            ref = qconv_plain(x, w, scale, bias, stride, pads, inv,
+                              out_dtype=dtype)
+            if not torch.equal(got, ref):
+                n = int((got != ref).sum())
+                raise AssertionError(
+                    f"K3 {path} Ci={ci} Co={co} {kh}x{kw}/{st} {pads} "
+                    f"{H}x{W} emit {dtype}: {n} values differ from the "
+                    "plain version")
+        # its channels of a wider concat buffer, the rest untouched
+        Ho, Wo = conv_out_size(H, W, kh, kw, stride, pads)
+        bufs = [torch.full((8, Ho, Wo, co + 48), 77, dtype=torch.int8,
+                           device="cuda") for _ in range(2)]
+        qconv_cuda(x, w, scale, bias, stride, pads, K3_INV_OUT,
+                   out=bufs[0], c_off=32)
+        qconv_plain(x, w, scale, bias, stride, pads, K3_INV_OUT,
+                    out=bufs[1], c_off=32)
+        torch.cuda.synchronize()
+        if not torch.equal(*bufs):
+            raise AssertionError(f"K3 {path}: concat-buffer write differs")
+    print(f"K3 check: bitwise equal to the plain version at all "
+          f"{len(shapes)} distinct conv geometries of inception_v3 @299, "
+          "B=8, emits s8, bf16 and f32, and into a concat buffer at "
+          "channel offset 32", flush=True)
+    # refusals: a CPU tensor, a misaligned x
+    x, w, scale, bias = k3_inputs(2, 9, 9, 32, 16, 1, 1, gen)
+    flat = torch.zeros(x.numel() + 16, dtype=torch.int8, device="cuda")
+    shifted = flat[8:8 + x.numel()].view(x.shape)
+    n = qconv_cuda.launches
+    for bad in (x.cpu(), shifted):
+        try:
+            qconv_cuda(bad, w, scale, bias, (1, 1), ((0, 0), (0, 0)), 1.0)
+        except ValueError:
+            continue
+        raise AssertionError(f"K3 accepted x on {bad.device} at "
+                             f"{bad.data_ptr():#x}")
+    if qconv_cuda.launches != n:
+        raise AssertionError("K3 counted a launch it refused")
+
+    rows = []
+    for name, ci, co, kh, kw, st, pads, H in K3_SHAPES:
+        B = K3_BATCH
+        x, w, scale, bias = k3_inputs(B, H, H, ci, co, kh, kw, gen)
+        stride = (st, st)
+        Ho, Wo = conv_out_size(H, H, kh, kw, stride, pads)
+        kernel = lambda: qconv_cuda(x, w, scale, bias, stride, pads,
+                                    K3_INV_OUT)
+        plain = lambda: qconv_plain(x, w, scale, bias, stride, pads,
+                                    K3_INV_OUT)
+        xb = torch.randn((B, ci, H, H), device="cuda", dtype=torch.bfloat16
+                         ).contiguous(memory_format=torch.channels_last)
+        wb = torch.randn((co, ci, kh, kw), device="cuda",
+                         dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bb = torch.randn(co, device="cuda", dtype=torch.bfloat16)
+        padding = (pads[0][0], pads[1][0])
+        lib = lambda: F.relu(F.conv2d(xb, wb, bb, stride, padding))
+        row = dict(name=name, B=B, ms=cuda_ms(kernel, 20),
+                   device_ms=cuda_ms(kernel, 20, queued=True),
+                   host_us=host_us(kernel),
+                   plain_ms=cuda_ms(plain, 2, warmup=1),
+                   library_ms=cuda_ms(lib, 20), int_mm_ms=None)
+        if kh == kw == 1:
+            a, b = x.view(-1, ci), w.view(co, ci).t()
+            row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(a, b), 20)
+        row["bound_ms"], row["bound_by"] = k3_bound(
+            B, H, H, ci, co, kh, kw, Ho, Wo, 1)
+        rows.append(row)
+        print("K3 time {name} B={B} s8 emit: kernel {ms:.4f} ms (device "
+              "alone {device_ms:.4f} ms; wrapper host {host_us:.1f} us per "
+              "call), bound {bound_ms:.4f} ms ({bound_by}), {x:.1f}x the "
+              "bound; plain {plain_ms:.2f} ms; bf16 cuDNN conv+bias+relu "
+              "{library_ms:.4f} ms{mm}".format(
+                  x=row["ms"] / row["bound_ms"],
+                  mm="" if row["int_mm_ms"] is None else
+                  "; torch._int_mm (s8 GEMM, no epilogue) "
+                  f"{row['int_mm_ms']:.4f} ms", **row), flush=True)
+        del x, w, xb, wb
+    return rows, len(shapes)
+
+
 def write_train_dataset(root, rng):
     """Folder-per-class PNGs (RGB) with ROI sides drawn as phase 3 draws
     them: a plankton-like blob of a per-class tint in noise."""
@@ -752,7 +949,11 @@ def ptxas_report(log):
         if "Compiling entry function" in ln:
             name = ln.split("'")[1] if "'" in ln else ln.strip()
             rows = re.search(r"Li(\d+)E", name)
-            kernel = ("preprocess_gray_taps" if "taps" in name else
+            k3 = re.search(r"qconv_s8_kernelILb(\d)ELi(\d)", name)
+            kernel = ("qconv_s8<{}, {}>".format(
+                "16-byte loads" if k3.group(1) == "1" else "byte gather",
+                ("s8", "bf16", "f32")[int(k3.group(2))]) if k3
+                      else "preprocess_gray_taps" if "taps" in name else
                       "preprocess_{}_resize<{}, {} rows>".format(
                           "rgb" if "rgb_resize" in name else "gray",
                           "bf16" if "bfloat16" in name else "f32",
@@ -872,6 +1073,7 @@ def profile_breakdown(run, card):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     k1 = sum(v for k, v in by_name.items() if "preprocess_gray" in k)
+    k3 = [v for k, v in by_name.items() if "qconv_s8" in k]
     k1_parts = {}
     for e in kern:
         for part in ("preprocess_gray_taps", "preprocess_gray_resize"):
@@ -883,7 +1085,10 @@ def profile_breakdown(run, card):
           f"{100 * busy / (wall_s * 1e6):.1f}% of wall (idle "
           f"{100 - 100 * busy / (wall_s * 1e6):.1f}%), memcpy "
           f"{copy_us / 1e3:.1f} ms, {len(kern)} kernel launches, K1 "
-          f"{k1 / 1e3:.2f} ms; on {card}", flush=True)
+          f"{k1 / 1e3:.2f} ms" + (
+              f", K3 {sum(k3) / 1e3:.2f} ms = "
+              f"{100 * sum(k3) / busy:.1f}% of the busy time" if k3 else "")
+          + f"; on {card}", flush=True)
     print("profile K1 per launch (us): " + "; ".join(
         f"{k} {np.mean(v):.2f} mean, {np.min(v):.2f}..{np.max(v):.2f} over "
         f"{len(v)} launches" for k, v in sorted(k1_parts.items())),
@@ -892,17 +1097,35 @@ def profile_breakdown(run, card):
         f"{k[:60]} {v / 1e3:.2f}" for k, v in top), flush=True)
 
 
+def warm_run(work, bins_dir, ckpt, engine, tag, extra=()):
+    """The same engine's RUN over the same bins into a fresh outdir
+    (``extra``: global flags); returns its wall seconds."""
+    import torch
+    from ifcb_classifier_tpu_torch.cli import argparse_nn, main
+    from ifcb_classifier_tpu_torch.utils.config import (
+        add_runtime_params, proc_outdir)
+    args = argparse_nn().parse_args(
+        ["--batch", "256", *extra, "RUN", bins_dir, ckpt, "smoke",
+         "--outdir", os.path.join(work, tag),
+         "--outfile", "{BIN_ID}_class.json"])
+    add_runtime_params(args)
+    proc_outdir(args, model_id_for_run=engine.model_id)
+    t0 = time.perf_counter()
+    main(args, engine=engine)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def main_path(work, rng, card):
     """Phase 3. Returns (K1 launches in the RUN, RUN numbers). The bins
     stay in ``work``/bins for phase 4."""
     import torch
-    from ifcb_classifier_tpu_torch.cli import argparse_nn, main, main_cli
+    from ifcb_classifier_tpu_torch.cli import main_cli
     from ifcb_classifier_tpu_torch.data.ifcb import Bin
     from ifcb_classifier_tpu_torch.infer.runner import InferenceEngine
     from ifcb_classifier_tpu_torch.ops.preprocess import (
         preprocess_gray_cuda, preprocess_rgb_cuda)
-    from ifcb_classifier_tpu_torch.utils.config import (
-        add_runtime_params, proc_outdir, resolve_dtype)
+    from ifcb_classifier_tpu_torch.utils.config import resolve_dtype
 
     bins_dir = os.path.join(work, "bins")
     os.makedirs(bins_dir)
@@ -942,32 +1165,22 @@ def main_path(work, rng, card):
           f"ROIs in {cold_s:.3f} s; K1 launches {launches} = engine "
           f"dispatches {dispatches}", flush=True)
 
-    # warm: the same engine over the same bins into a fresh outdir
-    def warm_run(tag):
-        args = argparse_nn().parse_args(
-            ["--batch", "256", "RUN", bins_dir, ckpt, "smoke",
-             "--outdir", os.path.join(work, tag),
-             "--outfile", "{BIN_ID}_class.json"])
-        add_runtime_params(args)
-        proc_outdir(args, model_id_for_run=engine.model_id)
-        t0 = time.perf_counter()
-        main(args, engine=engine)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    warm_s = warm_run("run_warm")
+    warm_s = warm_run(work, bins_dir, ckpt, engine, "run_warm")
     img_s = n_rois / warm_s
     print(f"RUN img/s (warm, inception_v3 @299 bf16, batch 256, "
           f"{n_rois} ROIs in {len(pids)} bins, bins read + packed + "
           f"classified + written): {img_s:.1f} on {card}", flush=True)
-    profile_breakdown(lambda: warm_run("run_prof"), card)
+    profile_breakdown(lambda: warm_run(work, bins_dir, ckpt, engine,
+                                       "run_prof"), card)
 
     # fp32 on the card (TF32 off) vs the bf16 RUN, and vs the CPU path
     e32 = InferenceEngine(ckpt, batch_size=256,
                           dtype=resolve_dtype("fp32", "cuda"))
     delta, agree, total = 0.0, 0, 0
+    scores32 = {}
     for pid in pids:
         _, p32 = e32.predict_bin(Bin(os.path.join(bins_dir, pid + ".adc")))
+        scores32[pid] = p32
         bf16, _ = read_scores(out, pid)
         delta = max(delta, float(np.abs(bf16 - p32).max()))
         agree += int((bf16.argmax(1) == p32.argmax(1)).sum())
@@ -983,7 +1196,90 @@ def main_path(work, rng, card):
         raise AssertionError(f"card fp32 vs CPU: max |d score| {cpu_err}")
     print(f"card fp32 vs CPU path ({len(t_cpu)} ROIs): max |d score| "
           f"{cpu_err:.4g} (tolerance {TOL_CPU_SCORES})", flush=True)
-    return launches, dict(img_s=img_s, cold_s=cold_s, warm_s=warm_s)
+    return launches, dict(img_s=img_s, cold_s=cold_s, warm_s=warm_s,
+                          ckpt=ckpt, pids=pids, bins_dir=bins_dir,
+                          bf16_out=out, scores32=scores32)
+
+
+def int8_path(work, run, card):
+    """Phase 3b. Returns (K3 launches in the int8 RUN, its numbers)."""
+    import torch
+    from ifcb_classifier_tpu_torch.cli import main_cli
+    from ifcb_classifier_tpu_torch.data.ifcb import Bin
+    from ifcb_classifier_tpu_torch.infer.runner import InferenceEngine
+    from ifcb_classifier_tpu_torch.ops.preprocess import preprocess_gray_cuda
+    from ifcb_classifier_tpu_torch.ops.qconv import qconv_cuda
+    from ifcb_classifier_tpu_torch.utils.config import resolve_dtype
+
+    bins_dir, ckpt, pids = run["bins_dir"], run["ckpt"], run["pids"]
+    out = os.path.join(work, "run_int8")
+    argv = ["--batch", "256", "--precision", "int8", "RUN", bins_dir, ckpt,
+            "smoke", "--outdir", out, "--outfile", "{BIN_ID}_class.json"]
+    preprocess_gray_cuda.launches = 0
+    qconv_cuda.launches = 0
+    t0 = time.perf_counter()
+    engine = main_cli(argv)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    k3, k1 = qconv_cuda.launches, preprocess_gray_cuda.launches
+    n8, n = engine.int8_dispatches, engine.dispatches
+    if not (engine.quant and n8 == n > 0 and k3 == K3_CONVS * n8
+            and k1 == n):
+        raise AssertionError(f"int8 RUN: K3 launched {k3} times, K1 {k1}, "
+                             f"for {n8} int8 of {n} dispatches")
+    d32, d16, agree, total = 0.0, 0.0, 0, 0
+    for pid, n_rois in zip(pids, BIN_SIZES):
+        s8, rois = read_scores(out, pid)
+        if s8.shape != (n_rois, N_CLASSES) or rois != list(
+                range(1, n_rois + 1)) or not np.isfinite(s8).all():
+            raise AssertionError(f"int8 {pid}: result {s8.shape}")
+        p32 = run["scores32"][pid]
+        bf16, _ = read_scores(run["bf16_out"], pid)
+        d32 = max(d32, float(np.abs(s8 - p32).max()))
+        d16 = max(d16, float(np.abs(s8 - bf16).max()))
+        agree += int((s8.argmax(1) == p32.argmax(1)).sum())
+        total += len(p32)
+    print(f"RUN --precision int8 (cold, incl. engine build and the "
+          f"calibration pass on the first dispatch): {total} ROIs in "
+          f"{cold_s:.3f} s; K3 launches {k3} = {K3_CONVS} x {n8} int8 "
+          f"dispatches (all {n}); K1 launches {k1}", flush=True)
+    if not d32 < TOL_INT8_FP32:
+        raise AssertionError(f"int8 vs fp32 scores: max |d p| {d32}")
+    print(f"int8 vs fp32 (card, TF32 off): max |d score| {d32:.4g} "
+          f"(gate {TOL_INT8_FP32}), argmax agreement {agree}/{total}; "
+          f"int8 vs bf16: max |d score| {d16:.4g}; on {card}", flush=True)
+
+    warm_s = warm_run(work, bins_dir, ckpt, engine, "run_int8_warm",
+                      ("--precision", "int8"))
+    img_s = total / warm_s
+    print(f"RUN img/s (warm, inception_v3 @299, batch 256, {total} ROIs): "
+          f"int8 {img_s:.1f}, bf16 {run['img_s']:.1f} (phase 3) on {card}",
+          flush=True)
+    profile_breakdown(lambda: warm_run(work, bins_dir, ckpt, engine,
+                                       "run_int8_prof",
+                                       ("--precision", "int8")), card)
+
+    # card vs CPU, batch 8, one pinned absmax, float parts f32 (TF32 off)
+    absmax, geoms = engine._calib_absmax, engine._calib_geoms
+    e_card = InferenceEngine(ckpt, batch_size=8, quant=True,
+                             dtype=resolve_dtype("fp32", "cuda"))
+    e_cpu = InferenceEngine(ckpt, batch_size=8, quant=True, device="cpu")
+    small = Bin(os.path.join(bins_dir, pids[-1] + ".adc"))
+    got = []
+    for e in (e_card, e_cpu):
+        e._swap_to_quant(absmax, geoms)
+        got.append(e.predict_bin(small))
+    (t_card, p_card), (t_cpu, p_cpu) = got
+    err = float(np.abs(p_card - p_cpu).max())
+    n_flip = int((p_card.argmax(1) != p_cpu.argmax(1)).sum())
+    if t_card != t_cpu or not err <= TOL_INT8_CPU or n_flip:
+        raise AssertionError(f"int8 card vs CPU: max |d score| {err}, "
+                             f"{n_flip} argmax differ")
+    print(f"int8 card (f32 float parts, TF32 off) vs CPU path, one pinned "
+          f"absmax, batch 8 ({len(t_cpu)} ROIs): max |d score| {err:.4g} "
+          f"(tolerance {TOL_INT8_CPU}), argmax equal", flush=True)
+    return k3, dict(img_s=img_s, cold_s=cold_s, warm_s=warm_s, d32=d32,
+                    d16=d16, agree=agree, total=total, cpu_err=err)
 
 
 def main():
@@ -997,6 +1293,7 @@ def main():
 
     from ifcb_classifier_tpu_torch import native
     from ifcb_classifier_tpu_torch.ops.preprocess import build_k1, build_k2
+    from ifcb_classifier_tpu_torch.ops.qconv import build_k3
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -1007,14 +1304,14 @@ def main():
 
     # one compiler process per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        k1_job, k2_job = pool.submit(build_k1), pool.submit(build_k2)
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(f) for f in (build_k1, build_k2, build_k3)]
         packer = pool.submit(native.available)
-        logs = [k1_job.result()[1], k2_job.result()[1]]
+        logs = [j.result()[1] for j in jobs]
         if not packer.result():
             raise RuntimeError("the native ROI packer did not build")
-    print(f"built K1, K2 and roipack in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"built K1, K2, K3 and roipack in {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
     for log in logs:
         for line in ptxas_report(log):
             print(line, flush=True)
@@ -1023,17 +1320,20 @@ def main():
     # 2. K1 and K2 against their plain versions
     rows, mix_rows, max_err = check_k1(rng)
     k2_rows, k2_err = check_k2(rng)
+    k3_rows, n_geoms = check_k3()
 
-    # 3. the RUN path, 4. the TRAIN path
+    # 3. the RUN path, 3b. its int8 tier, 4. the TRAIN path
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, run = main_path(work, rng, card)
+        k3_launches, run8 = int8_path(work, run, card)
         train = train_path(work, os.path.join(work, "bins"), card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # 5. result lines
     main_row = next(r for r in rows if r["S"] == 128)
+    k3_row = next(r for r in k3_rows if r["name"] == K3_MAIN)
     # K2's row: the rung most of this run's train batches landed on
     k2_S = max(train["rungs"], key=train["rungs"].get)
     k2_row = next(r for r in k2_rows if r["S"] == k2_S)
@@ -1048,6 +1348,11 @@ def main():
           f"{k2_row['bound_ms']:.4f} ms; TRAIN {train['img_s']:.1f} img/s "
           f"(second epoch {train['warm_img_s']:.1f}); card {card}",
           flush=True)
+    print(f"K3 at {K3_MAIN} B={K3_BATCH} s8: {k3_row['ms']:.4f} ms (device "
+          f"alone {k3_row['device_ms']:.4f} ms), bound "
+          f"{k3_row['bound_ms']:.4f} ms ({k3_row['bound_by']}); "
+          f"{k3_launches} launches in the int8 RUN; int8 RUN "
+          f"{run8['img_s']:.1f} img/s; card {card}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "k1_preprocess_gray", "route": "cuda",
         "source": "ifcb_classifier_tpu_torch/csrc/preprocess_gray.cu",
@@ -1071,7 +1376,24 @@ def main():
         "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
         "library_ms": k2_row["library_ms"], "S": k2_S,
         "kernels_per_launch": 2, "device_ms": k2_row["device_ms"],
-        "host_us": k2_row["host_us"]}]}), flush=True)
+        "host_us": k2_row["host_us"]}, {
+        "name": "k3_qconv_s8", "route": "cuda",
+        "source": "ifcb_classifier_tpu_torch/csrc/qconv_s8.cu",
+        # an XLA fusion on the TPU, no pallas_call: _QuantCtx.conv's s8
+        # conv into s32 and its epilogue
+        "replaces": "ifcb_classifier_tpu/models/quant_graph.py:96",
+        "launches": k3_launches, "max_abs_err": 0,
+        "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
+        "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
+        # bf16 cuDNN conv + bias + relu of the same shape: the float path
+        # K3 replaces, not the same function
+        "library_ms": k3_row["library_ms"], "shape": K3_MAIN,
+        "device_ms": k3_row["device_ms"], "host_us": k3_row["host_us"],
+        "geometries_checked": n_geoms,
+        "shapes": [{k: r[k] for k in ("name", "ms", "device_ms", "host_us",
+                                      "bound_ms", "bound_by", "plain_ms",
+                                      "library_ms", "int_mm_ms")}
+                   for r in k3_rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -50,8 +50,11 @@ def argparse_nn(parser=None):
                         choices=["auto", "bf16", "fp32", "int8"],
                         default="auto",
                         help="Compute dtype; auto = bf16 on the GPU, fp32 on "
-                             "the CPU. fp32 also turns TF32 off. int8 is not "
-                             "ported yet (ROADMAP P8)")
+                             "the CPU. fp32 also turns TF32 off. int8 (RUN "
+                             "only) = the quantized tier: every conv s8 x s8 "
+                             "with activation scales calibrated on the first "
+                             "batch (--calib-batches, --calib), the rest at "
+                             "the auto dtype")
     common.add_argument("--remat", action="store_true",
                         help="Rematerialize activations in backprop "
                              "(TRAIN only; not ported yet, ROADMAP P5b)")
@@ -249,13 +252,18 @@ def argparse_nn_run(run):
                           "yet, ROADMAP P9)")
     run.add_argument("--gobig", action="store_true", help=argparse.SUPPRESS)
     run.add_argument("--calib-batches", metavar="N", default=1, type=int,
-                     help="With --precision int8 (not ported yet, "
-                          "ROADMAP P8)")
+                     help="With --precision int8: calibrate the activation "
+                          "scales over the first N batches (max absmax); "
+                          "those N batches are served at full precision "
+                          "and the int8 graph takes over from the next. "
+                          "Default 1: every score is int8.")
     run.add_argument("--calib", metavar="DIR", default=None,
-                     help="With --precision int8 (not ported yet, "
-                          "ROADMAP P8)")
+                     help="With --precision int8: pin the activation scales "
+                          "to a fixed sample (bins, or an image folder) at "
+                          "engine build instead of the first batch served.")
     run.add_argument("--calib-count", metavar="N", default=128, type=int,
-                     help="With --calib (not ported yet, ROADMAP P8)")
+                     help="With --calib: how many ROIs or images of DIR "
+                          "calibrate. Default 128.")
     run.add_argument("--no-batch-ladder", dest="batch_ladder",
                      action="store_false", default=None,
                      help="Disable the batch-bucket ladder: every dispatch "

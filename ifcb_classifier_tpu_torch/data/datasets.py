@@ -350,3 +350,32 @@ def parse_imgnorm(img_norm_arg):
     if not len(mean) == len(std) == 3:
         raise ValueError('--img-norm invalid: {}'.format(img_norm_arg))
     return mean, std
+
+
+def list_image_paths(src, filter_mode=None, filter_keywords=()):
+    """Image paths under ``src`` (the JAX package's data/datasets.py:356,
+    the reference's neuston_net.py:282-301): a recursive directory walk
+    (sorted), a .txt list, or one image; then the IN/OUT keyword filter.
+    Serves ``RUN --calib DIR`` on an image folder (export._load_calib_batch)
+    now, and image-directory RUN with P6."""
+    img_paths = []
+    if os.path.isdir(src):
+        for pardir, _, imgs in os.walk(src):
+            img_paths.extend(os.path.join(pardir, img) for img in imgs
+                             if img.endswith(IMG_EXTENSIONS))
+        img_paths.sort()
+    elif os.path.isfile(src) and src.endswith('.txt'):
+        with open(src) as f:
+            img_paths = [line.strip() for line in f.read().splitlines()]
+            img_paths = [img for img in img_paths
+                         if img.endswith(IMG_EXTENSIONS)]
+    elif src.endswith(IMG_EXTENSIONS):
+        img_paths.append(src)
+
+    if filter_mode == 'IN':
+        img_paths = [img for img in img_paths
+                     if any(k in img for k in filter_keywords)]
+    elif filter_mode == 'OUT':
+        img_paths = [img for img in img_paths
+                     if not any(k in img for k in filter_keywords)]
+    return img_paths

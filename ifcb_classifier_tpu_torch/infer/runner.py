@@ -9,8 +9,11 @@ packed straight from each bin's .roi buffer into uint8 canvases on a
 (ops/preprocess.py), classified, and fetched once per bin. Per-bin output
 files and per-bin error isolation follow the reference.
 
-Served here: ``RUN --type bin``, single process, one pass. The other modes
-raise naming the slice that ports them (see UNPORTED_RUN_FLAGS).
+Served here: ``RUN --type bin``, single process, one pass, at bf16/fp32
+or ``--precision int8`` (models/quant.py: activation scales calibrated on
+the first batch(es) or a pinned sample, then every conv through kernel K3).
+The other modes raise naming the slice that ports them (see
+UNPORTED_RUN_FLAGS).
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from ..data.ifcb import SCHEMA_VERSION_1, DataDirectory, infilled_images
 from ..data.pipeline import MAX_CANVAS, ladder_size, pack_canvas_batch
 from ..models import get_namebrand_model
 from ..models.fold import fold_state_dict, supports_fold
-from ..models.torch_port import params_from_jax
+from ..models.quant import (_QUANT_KEY, make_calib_fn, make_quant_predict,
+                            quantize_params, supports_quant)
+from ..models.torch_port import params_from_jax, qconv_from_jax
 from ..ops.preprocess import preprocess_gray
 from ..results.run import save_run_results, validate_outfiles
 from ..train.checkpoint import load_checkpoint
@@ -39,11 +44,6 @@ SCORE_HIST_BINS = 50  # the JAX package's results/plots.py:194
 # (args attribute, the values this slice serves, what ports the others)
 UNPORTED_RUN_FLAGS = (
     ("src_type", ("bin",), "--type img: the image-directory slice, P6"),
-    ("precision", (None, "auto", "bf16", "fp32"),
-     "--precision int8: the int8 tier, P8"),
-    ("calib", (None,), "--calib: the int8 tier, P8"),
-    ("calib_batches", (None, 1), "--calib-batches: the int8 tier, P8"),
-    ("calib_count", (None, 128), "--calib-count: the int8 tier, P8"),
     ("gobig", (None, False), "--gobig: serving extras, P9"),
     ("watch", (None,), "--watch: serving extras, P9"),
     ("watch_settle", (None,), "--watch-settle: serving extras, P9"),
@@ -80,10 +80,12 @@ def _batch_buckets(batch_size, enabled=True):
 
 class InferenceEngine:
     """Persistent predict pipeline: uint8 canvas batch → probs, on one
-    device. ``dispatches`` counts the batches sent to the device."""
+    device. ``dispatches`` counts the batches sent to the device,
+    ``int8_dispatches`` those the int8 graph served."""
 
     def __init__(self, ckpt_path, batch_size=108, dtype=None,
-                 batch_ladder=True, device=None):
+                 batch_ladder=True, device=None, quant=False,
+                 calib_batches=1, calib_src=None, calib_count=128):
         self.device = resolve_device(device)
         params, batch_stats, hparams = load_checkpoint(ckpt_path)
         self.classes = hparams["classes"]
@@ -96,6 +98,33 @@ class InferenceEngine:
             resolve_dtype(None, self.device)
 
         name = hparams["MODEL"]
+        # --precision int8 (models/quant.py): calibrated lazily on the first
+        # `calib_batches` batches this engine sees (activation scales need
+        # real data), or pinned to `calib_src` at build. With the default
+        # calib_batches=1 every score — that first batch's included — comes
+        # from the int8 graph; with N>1 the absmax is the max over the first
+        # N batches, which the folded full-precision graph serves before
+        # the engine swaps to int8. The float parts run at `dtype`.
+        self.quant = bool(quant)
+        self.calib_batches = max(1, int(calib_batches))
+        self.calib_src = calib_src
+        self._quant_ready = False
+        self._calib_fn = None
+        self._calib_absmax = None
+        self._calib_seen = 0
+        if calib_src and not self.quant:
+            raise ValueError("--calib is only meaningful with "
+                             "--precision int8 (it pins the int8 "
+                             "activation scales)")
+        if calib_src and int(calib_batches) > 1:
+            raise ValueError("--calib pins activation scales to a fixed "
+                             "sample; --calib-batches widens FIRST-ARRIVAL "
+                             "calibration — pick one")
+        if self.quant and not supports_quant(name):
+            raise ValueError(
+                f"--precision int8 is not supported for {name!r} "
+                "(families: inception_v3, resnet*, vgg*_bn — depthwise/"
+                "grouped convs gain nothing from the int8 path)")
         # the aux head runs only in training: the served model has none
         sd = {k: v for k, v in params_from_jax(params, batch_stats).items()
               if not k.startswith("AuxLogits.")}
@@ -113,22 +142,90 @@ class InferenceEngine:
         model.load_state_dict(sd, strict=True)
         self.model = model.to(device=self.device, dtype=self.dtype,
                               memory_format=torch.channels_last).eval()
-        self._predict = make_predict_step(self.model)
+        predict = make_predict_step(self.model)
+        # the int8 graph takes f32 images (the JAX engine preprocesses in
+        # f32); its full-precision graph, until the swap, casts them
+        self._predict = (lambda x: predict(x.to(self.dtype))) \
+            if self.quant else predict
+        # the folded f32 weights that the swap quantizes
+        self._folded = sd if self.quant else None
         self._mean_std = (parse_imgnorm(img_norm) if img_norm
                           else (None, None))
         self.batch_buckets = _batch_buckets(self.batch_size, batch_ladder)
         self.dispatches = 0
+        self.int8_dispatches = 0
+        if self.quant and calib_src:
+            self._calibrate_pinned(calib_src, calib_count)
+
+    def _absmax(self, x):
+        """One calibration pass over the f32 NHWC images ``x``: {key:
+        absmax} as Python floats (one device-to-host copy)."""
+        if self._calib_fn is None:
+            self._calib_fn, self._calib_geoms = make_calib_fn(self.model)
+        rec = self._calib_fn(self.model.state_dict(), x)
+        vals = torch.stack(list(rec.values())).cpu().tolist()
+        return dict(zip(rec, vals))
+
+    def _calibrate_pinned(self, calib_src, calib_count):
+        """RUN --precision int8 --calib DIR: freeze the activation scales to
+        a fixed sample at engine build (the loader EXPORT --calib shares,
+        export._load_calib_batch), so every score the engine returns uses
+        these scales, whichever bin arrives first."""
+        from ..export import _load_calib_batch
+        mean, std = self._mean_std
+        x = _load_calib_batch(calib_src, self.resize, mean, std,
+                              int(calib_count), self.device)
+        self._calib_absmax = self._absmax(x)
+        self._swap_to_quant(self._calib_absmax, self._calib_geoms)
+
+    def _swap_to_quant(self, absmax, geoms):
+        """Quantize the folded weights against ``absmax`` and swap the
+        engine onto the int8 graph — the one swap sequence of pinned
+        (--calib) and lazy (first-arrival) calibration. The int8 weights
+        are reordered here, once, into K3's layout."""
+        pruned, qconv = quantize_params(self._folded, geoms)
+        params = {k: v.to(self.device) for k, v in pruned.items()}
+        params[_QUANT_KEY] = qconv_from_jax(qconv, self.device)
+        predict_q = make_quant_predict(self.model, absmax, geoms)
+
+        def predict(x):
+            self.int8_dispatches += 1
+            return predict_q(params, x)
+
+        self._predict = predict
+        self._quant_ready = True
+
+    def _calibrate(self, x):
+        """Accumulate the per-tensor absmax over this batch; on the
+        calib_batches-th batch, quantize and swap in the int8 graph."""
+        absmax = self._absmax(x)
+        if self._calib_absmax is None:
+            self._calib_absmax = absmax
+        else:
+            self._calib_absmax = {k: max(v, self._calib_absmax[k])
+                                  for k, v in absmax.items()}
+        self._calib_seen += 1
+        if self._calib_seen < self.calib_batches:
+            return  # keep serving full precision while calibrating
+        self._swap_to_quant(self._calib_absmax, self._calib_geoms)
 
     @classmethod
     def from_args(cls, args, device=None):
-        """The one mapping from RUN flags to constructor kwargs."""
+        """The one mapping from RUN flags to constructor kwargs. int8's
+        float parts run at the auto dtype (resolve_dtype('int8'))."""
         device = resolve_device(device)
+        precision = getattr(args, "precision", None)
+        cb = getattr(args, "calib_batches", None)
+        if cb is not None and cb < 1:
+            raise ValueError(f"--calib-batches must be >= 1 (got {cb})")
         return cls(args.MODEL, batch_size=args.batch_size,
-                   dtype=resolve_dtype(getattr(args, "precision", None),
-                                       device),
+                   dtype=resolve_dtype(precision, device),
                    batch_ladder=getattr(args, "batch_ladder", None)
                    is not False,
-                   device=device)
+                   device=device, quant=precision == "int8",
+                   calib_batches=cb or 1,
+                   calib_src=getattr(args, "calib", None),
+                   calib_count=getattr(args, "calib_count", None) or 128)
 
     def bucket_for(self, n):
         """Smallest dispatch batch covering n rows (pad-waste control)."""
@@ -150,13 +247,33 @@ class InferenceEngine:
     def _dispatch(self, canvas, sizes):
         """Host uint8 canvas [B,S,S] + int32 sizes [B,2] tensors (from
         _host_buffers) → device probs [B, n_classes], without waiting for
-        the device."""
+        the device (except to fetch the absmax while an int8 engine
+        calibrates: on its first ``calib_batches`` batches it calibrates
+        on this data; once enough are seen it swaps in the int8 graph —
+        with N=1 before this batch is served, with N>1 after)."""
+        if self.quant and not self._quant_ready \
+                and canvas.shape[0] < self.batch_size:
+            # calibration batches are padded to the FULL batch, as in the
+            # JAX engine: its pad rows (zero canvases, sizes (1,1)) enter
+            # the absmax; callers slice probs by their own row counts
+            pad = self.batch_size - canvas.shape[0]
+            canvas = torch.cat([canvas, canvas.new_zeros(
+                (pad,) + tuple(canvas.shape[1:]))])
+            sizes = torch.cat([sizes, sizes.new_ones((pad, 2))])
         canvas = canvas.to(self.device, non_blocking=True)
         sizes = sizes.to(self.device, non_blocking=True)
         mean, std = self._mean_std
         x = preprocess_gray(canvas, sizes, out_size=self.resize, mean=mean,
-                            std=std, dtype=self.dtype)
+                            std=std,
+                            dtype=torch.float32 if self.quant else self.dtype)
         self.dispatches += 1
+        if self.quant and not self._quant_ready:
+            predict = self._predict  # the full-precision graph
+            self._calibrate(x)
+            if self.calib_batches > 1:
+                # all N calibration batches are served at full precision;
+                # the swap takes effect on the next dispatch
+                return predict(x)
         return self._predict(x)
 
     def _fetch(self, pending):
@@ -329,6 +446,10 @@ def parse_filter(filter_arg):
 def do_run(args, engine=None):
     """RUN --type bin over a bin directory, a .txt bin list or one bin."""
     reject_unported(args)
+    if (getattr(args, "calib_batches", None) not in (None, 1)
+            and getattr(args, "precision", None) != "int8"):
+        raise ValueError("--calib-batches requires --precision int8 "
+                         "(it sizes the int8 calibration phase)")
     if engine is None:
         engine = InferenceEngine.from_args(args)
 

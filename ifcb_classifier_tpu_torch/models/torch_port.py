@@ -12,7 +12,8 @@ Inception's module names are torchvision's verbatim, with the BasicConv2d
 ``conv``/``bn`` level kept, so a tree path joined with '.' is the state-dict
 key; the aux head (``AuxLogits``, trained by TRAIN) carries across by the
 same rules both ways. Folded trees (conv kernel + bias, no bn) map by the
-same rules.
+same rules. The int8 tier's per-conv leaves (the JAX package's
+``__quant__`` entries) carry across with ``qconv_from_jax``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "qconv_from_jax"]
 
 _LEAF_TO_TORCH = {"kernel": "weight", "scale": "weight", "bias": "bias",
                   "mean": "running_mean", "var": "running_var"}
@@ -77,3 +78,22 @@ def params_to_jax(state_dict) -> tuple[dict, dict]:
             tree = tree.setdefault(p, {})
         tree[name] = np.ascontiguousarray(t)
     return params, stats
+
+
+def qconv_from_jax(qconv, device=None) -> dict:
+    """The JAX package's int8 conv leaves ({path: {w_int8 HWIO
+    [kh,kw,ci,co], w_scale [co], bias [co]}}, from quantize_params) → the
+    port's, in kernel K3's layout: {path: {w s8 [co,kh,kw,ci] (each output
+    channel's K = kh*kw*ci bytes contiguous), w_scale f32 [co], bias f32
+    [co]}} on ``device``."""
+    out = {}
+    for key, q in qconv.items():
+        w = np.ascontiguousarray(np.asarray(q["w_int8"], np.int8)
+                                 .transpose(3, 0, 1, 2))
+        out[key] = dict(
+            w=torch.from_numpy(w).to(device),
+            w_scale=torch.from_numpy(
+                np.asarray(q["w_scale"], np.float32)).to(device),
+            bias=torch.from_numpy(np.asarray(q["bias"], np.float32))
+            .to(device))
+    return out

@@ -69,14 +69,17 @@ UNPORTED_TRAIN_FLAGS = (
     ("export", (None, False), "--export: export, P11"),
     ("weights", (None,), "--weights: torchvision state dicts, P6"),
     ("profile", (None, 0), "--profile: serving extras, P9"),
-    ("precision", (None, "auto", "bf16", "fp32"),
-     "--precision int8: the int8 tier, P8"),
 )
 
 
 def reject_unported_train(args):
     """Raise for any TRAIN flag value or model this slice does not serve —
-    never ignore one silently."""
+    never ignore one silently. int8 is an inference-engine mode, not a
+    compute dtype: TRAIN refuses it with the JAX package's ValueError
+    (its utils/config.py:128-131)."""
+    if getattr(args, "precision", None) == "int8":
+        raise ValueError("--precision int8 applies to RUN only "
+                         "(post-training quantization of a trained model)")
     for attr, served, what in UNPORTED_TRAIN_FLAGS:
         if getattr(args, attr, None) not in served:
             raise NotImplementedError(f"not ported yet: {what} (ROADMAP)")

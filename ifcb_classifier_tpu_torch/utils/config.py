@@ -26,20 +26,21 @@ def resolve_device(device=None) -> torch.device:
 
 def resolve_dtype(precision, device) -> torch.dtype:
     """--precision string -> torch dtype. None/'auto' is bf16 on CUDA and
-    f32 elsewhere (the JAX package's bf16-on-TPU rule).
+    f32 elsewhere (the JAX package's bf16-on-TPU rule); 'int8' gives the
+    float dtype of the int8 engine's float parts, the same (the JAX
+    package's engine passes resolve_dtype(None) for int8; TRAIN refuses
+    int8, train/loop.reject_unported_train).
 
     fp32 also turns TF32 off for matmuls and cuDNN convolutions: a float32
     convolution on the card otherwise runs in TF32 (about three decimal
     digits), which is not what ``--precision fp32`` promises."""
-    if precision in (None, "auto"):
+    if precision in (None, "auto", "int8"):
         return torch.bfloat16 if torch.device(device).type == "cuda" \
             else torch.float32
-    if precision == "int8":
-        raise ValueError("--precision int8 is not ported yet (ROADMAP P8)")
     table = {"bf16": torch.bfloat16, "fp32": torch.float32}
     if precision not in table:
         raise ValueError(f"unknown precision {precision!r} "
-                         "(choose auto, bf16 or fp32)")
+                         "(choose auto, bf16, fp32, or int8 for RUN)")
     if precision == "fp32":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

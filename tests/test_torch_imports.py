@@ -31,9 +31,10 @@ def test_port_imports_no_jax():
     n, bad = first.split(" ", 1)
     assert int(n) >= 25, proc.stdout  # every module was found and imported
     assert bad.strip() == "[]", proc.stdout
-    # the TRAIN slice's modules among them
+    # the TRAIN and int8 slices' modules among them
     for mod in ("data.datasets", "data.pipeline", "ops.preprocess",
                 "models.layers", "models.inception", "train.state",
                 "train.checkpoint", "train.loop", "results.validation",
-                "utils.config", "cli"):
+                "utils.config", "cli", "ops.qconv", "models.quant",
+                "models.quant_resident", "models.quant_graph", "export"):
         assert "ifcb_classifier_tpu_torch." + mod in names.split(), mod

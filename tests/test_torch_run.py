@@ -165,8 +165,7 @@ def test_unported_flags_raise(ckpt, bins, tmp_path):
     from ifcb_classifier_tpu_torch.infer.runner import do_run
     for extra, item in (({"gobig": True}, "P9"), ({"watch": 5.0}, "P9"),
                         ({"src_type": "img"}, "P6"),
-                        ({"precision": "int8"}, "P8"),
-                        ({"calib": "x"}, "P8"), ({"mesh": "2x1"}, "P10"),
+                        ({"mesh": "2x1"}, "P10"),
                         ({"plot_files": [["a.png"]]}, "P6")):
         args = _args(bins, ckpt, str(tmp_path), ["{BIN_ID}.json"])
         vars(args).update(extra)
