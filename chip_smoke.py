@@ -36,15 +36,25 @@ Phases (any failure exits non-zero and prints no result):
      plain version (ops/qconv.qconv_plain: a float64 convolution of the
      int8 values, exact, then the f32 epilogue) on the card at every
      distinct conv geometry of inception_v3 @299 (Ci, Co, kernel, stride,
-     pads, H, W, from a shape-only pass of the int8 graph), B=8, inputs
-     from a seed, emitting s8, bf16 and f32: bitwise equal, also when it
-     writes its channels of a wider concat buffer; a CPU tensor and a
-     misaligned one are refused. At B=256 it is timed on five shapes of
-     the main path (ms, device ms, host us per call, bound and what bounds
-     it, the plain version's ms; beside them the bf16 cuDNN conv + bias +
-     relu of the same shape, the float path K3 replaces, and for the 1x1
-     shape torch._int_mm on the same s8 GEMM without an epilogue: neither
-     computes K3's function and the port calls neither).
+     pads, H, W, from a shape-only pass of the int8 graph), inputs from a
+     seed: B=8 emitting s8, bf16 and f32 and B=1 emitting s8 (most of these
+     M are no multiple of the 128-row tile), with the weights packed per
+     call and packed once (ops/qconv.pack_k3_weights): bitwise equal, also
+     when it writes its channels of a wider concat buffer at channel offset
+     32, and at 8 in rows of Co + 40 bytes (no 16-byte alignment); a CPU
+     tensor and a misaligned one are refused. At B=256 (the RUN's batch,
+     where the persistent grid walks several tiles a block) it is held
+     bitwise to the plain version and timed on five
+     shapes of the main path (ms, device ms, host us per call, bound and
+     what bounds it, the plain version's ms; beside them the bf16 cuDNN
+     conv + bias + relu of the same shape, the float path K3 replaces, and
+     for the 1x1 shape torch._int_mm on the same s8 GEMM without an
+     epilogue: neither computes K3's function and the port calls neither),
+     and once over a dispatch: each geometry at B=256, held bitwise to the
+     plain version and timed (device time) with the emit the graph gives
+     it (s8, or bf16 for Mixed_7c's branch ends), weighted by how many of
+     the 94 convs have it, summed beside the summed bound (the kernels
+     line's dispatch_ms, dispatch_bound_ms).
   3. the RUN path: synthetic IFCB bins (a realistic ROI size mix over the
      64..1024 rungs, one bin of 1,500 ROIs) are classified by
      ``RUN --batch 256`` of the port's CLI with a random-init full-width
@@ -518,8 +528,9 @@ def check_k2(rng):
 def inception_conv_shapes():
     """The distinct (Ci, Co, kh, kw, stride, pads, H, W) of inception_v3's
     94 convs at 299 px, from a shape-only pass (meta tensors) of the int8
-    graph's calibration topology, each with the first conv path that has
-    it."""
+    graph's calibration topology: each with the first conv path that has
+    it, how many of the 94 have it and how many of those emit floats
+    (Mixed_7c's branch ends, which feed the head) rather than s8."""
     import torch
     from ifcb_classifier_tpu_torch.models import get_namebrand_model
     from ifcb_classifier_tpu_torch.models import quant_graph as QG
@@ -532,15 +543,23 @@ def inception_conv_shapes():
             g = self.geoms[tuple(path)]
             key = (x.shape[1], w.shape[0], w.shape[2], w.shape[3],
                    g["strides"][0], g["padding"], x.shape[2], x.shape[3])
-            found.setdefault(key, "/".join(path))
+            first, n, n_float = found.get(key, ("/".join(path), 0, 0))
+            found[key] = (first, n + 1, n_float + (emit is None))
             return y
+
+        def group(self, out_keys, extra=()):
+            # a stand-in for the block's shared output scale, so that only
+            # the convs the int8 graph gives emit=None (Mixed_7c's branch
+            # ends) count as emitting floats
+            return "group"
 
     model = get_namebrand_model("inception_v3", N_CLASSES, fold_bn=True)
     params = {k: v.to("meta") for k, v in model.state_dict().items()}
     records, geoms = {}, {}
     QG._graph(ShapeCtx(params, records, geoms, torch.float32),
               torch.empty((1, R, R, 3), device="meta"), False)
-    if len(geoms) != K3_CONVS:
+    if len(geoms) != K3_CONVS or sum(n for _, n, _ in found.values()) \
+            != K3_CONVS:
         raise AssertionError(f"shape pass saw {len(geoms)} convs")
     return found
 
@@ -574,46 +593,72 @@ def k3_inputs(B, H, W, ci, co, kh, kw, gen):
 K3_INV_OUT = 127.0 / 4.0
 
 
+def k3_expect(ref, co, width, c_off, fill=77):
+    """The concat buffer K3 must leave: ``fill`` everywhere but channels
+    c_off..c_off+co, which hold ``ref``."""
+    import torch
+    buf = torch.full((*ref.shape[:3], width), fill, dtype=ref.dtype,
+                     device=ref.device)
+    buf[..., c_off:c_off + co] = ref
+    return buf
+
+
 def check_k3():
     """Phase 2c. Returns (timing rows of K3_SHAPES, number of geometries
-    checked)."""
+    checked, the per-dispatch sweep)."""
     import torch
     import torch.nn.functional as F
     from ifcb_classifier_tpu_torch.ops.qconv import (
-        conv_out_size, qconv_cuda, qconv_plain)
+        conv_out_size, pack_k3_weights, qconv_cuda, qconv_plain)
     gen = torch.Generator().manual_seed(4)
     shapes = inception_conv_shapes()
-    for (ci, co, kh, kw, st, pads, H, W), path in sorted(shapes.items()):
-        x, w, scale, bias = k3_inputs(8, H, W, ci, co, kh, kw, gen)
+    ragged = 0
+    for (ci, co, kh, kw, st, pads, H, W), (path, _, _) in sorted(
+            shapes.items()):
         stride = (st, st)
-        for inv, dtype in ((K3_INV_OUT, torch.int8), (None, torch.bfloat16),
-                           (None, torch.float32)):
-            got = qconv_cuda(x, w, scale, bias, stride, pads, inv,
-                             out_dtype=dtype)
-            torch.cuda.synchronize()
-            ref = qconv_plain(x, w, scale, bias, stride, pads, inv,
-                              out_dtype=dtype)
-            if not torch.equal(got, ref):
-                n = int((got != ref).sum())
-                raise AssertionError(
-                    f"K3 {path} Ci={ci} Co={co} {kh}x{kw}/{st} {pads} "
-                    f"{H}x{W} emit {dtype}: {n} values differ from the "
-                    "plain version")
-        # its channels of a wider concat buffer, the rest untouched
         Ho, Wo = conv_out_size(H, W, kh, kw, stride, pads)
-        bufs = [torch.full((8, Ho, Wo, co + 48), 77, dtype=torch.int8,
-                           device="cuda") for _ in range(2)]
-        qconv_cuda(x, w, scale, bias, stride, pads, K3_INV_OUT,
-                   out=bufs[0], c_off=32)
-        qconv_plain(x, w, scale, bias, stride, pads, K3_INV_OUT,
-                    out=bufs[1], c_off=32)
-        torch.cuda.synchronize()
-        if not torch.equal(*bufs):
-            raise AssertionError(f"K3 {path}: concat-buffer write differs")
+        where = f"K3 {path} Ci={ci} Co={co} {kh}x{kw}/{st} {pads} {H}x{W}"
+        for B in (8, 1):
+            x, w, scale, bias = k3_inputs(B, H, W, ci, co, kh, kw, gen)
+            packed = pack_k3_weights(w)
+            emits = ((K3_INV_OUT, torch.int8), (None, torch.bfloat16),
+                     (None, torch.float32)) if B == 8 else \
+                ((K3_INV_OUT, torch.int8),)
+            for inv, dtype in emits:
+                ref = qconv_plain(x, w, scale, bias, stride, pads, inv,
+                                  out_dtype=dtype)
+                if dtype == torch.int8:
+                    ref_s8 = ref
+                got = [qconv_cuda(x, w, scale, bias, stride, pads, inv,
+                                  out_dtype=dtype, pack=pk)
+                       for pk in (None, packed)]
+                torch.cuda.synchronize()
+                for g, how in zip(got, ("packed per call", "packed once")):
+                    if not torch.equal(g, ref):
+                        n = int((g != ref).sum())
+                        raise AssertionError(
+                            f"{where} B={B} emit {dtype} ({how}): {n} "
+                            "values differ from the plain version")
+            # its channels of a wider concat buffer, the rest untouched: at
+            # offset 32 (B=8), and at 8 in rows of co + 40 (no 16-byte
+            # alignment: the kernel's narrower stores)
+            c_off, width = (32, co + 48) if B == 8 else (8, co + 40)
+            buf = torch.full((B, Ho, Wo, width), 77, dtype=torch.int8,
+                             device="cuda")
+            qconv_cuda(x, w, scale, bias, stride, pads, K3_INV_OUT, out=buf,
+                       c_off=c_off, pack=packed)
+            torch.cuda.synchronize()
+            if not torch.equal(buf, k3_expect(ref_s8, co, width, c_off)):
+                raise AssertionError(f"{where} B={B}: concat-buffer write "
+                                     f"at channel {c_off} differs")
+            ragged += (B * Ho * Wo) % 128 != 0
     print(f"K3 check: bitwise equal to the plain version at all "
-          f"{len(shapes)} distinct conv geometries of inception_v3 @299, "
-          "B=8, emits s8, bf16 and f32, and into a concat buffer at "
-          "channel offset 32", flush=True)
+          f"{len(shapes)} distinct conv geometries of inception_v3 @299: "
+          "B=8 emitting s8, bf16 and f32 and B=1 emitting s8, each with the "
+          "weights packed per call and packed once; into a concat buffer at "
+          "channel offset 32 (B=8) and 8 in rows of Co + 40 bytes (B=1); "
+          f"{ragged} of the {2 * len(shapes)} cases have an M that is not "
+          "a multiple of the 128-row tile", flush=True)
     # refusals: a CPU tensor, a misaligned x
     x, w, scale, bias = k3_inputs(2, 9, 9, 32, 16, 1, 1, gen)
     flat = torch.zeros(x.numel() + 16, dtype=torch.int8, device="cuda")
@@ -635,8 +680,9 @@ def check_k3():
         x, w, scale, bias = k3_inputs(B, H, H, ci, co, kh, kw, gen)
         stride = (st, st)
         Ho, Wo = conv_out_size(H, H, kh, kw, stride, pads)
+        packed = pack_k3_weights(w)
         kernel = lambda: qconv_cuda(x, w, scale, bias, stride, pads,
-                                    K3_INV_OUT)
+                                    K3_INV_OUT, pack=packed)
         plain = lambda: qconv_plain(x, w, scale, bias, stride, pads,
                                     K3_INV_OUT)
         xb = torch.randn((B, ci, H, H), device="cuda", dtype=torch.bfloat16
@@ -647,6 +693,12 @@ def check_k3():
         bb = torch.randn(co, device="cuda", dtype=torch.bfloat16)
         padding = (pads[0][0], pads[1][0])
         lib = lambda: F.relu(F.conv2d(xb, wb, bb, stride, padding))
+        got, ref = kernel(), plain()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K3 {name} B={B} s8 emit: "
+                                 f"{int((got != ref).sum())} values differ "
+                                 "from the plain version")
+        del got, ref
         row = dict(name=name, B=B, ms=cuda_ms(kernel, 20),
                    device_ms=cuda_ms(kernel, 20, queued=True),
                    host_us=host_us(kernel),
@@ -668,7 +720,68 @@ def check_k3():
                   "; torch._int_mm (s8 GEMM, no epilogue) "
                   f"{row['int_mm_ms']:.4f} ms", **row), flush=True)
         del x, w, xb, wb
-    return rows, len(shapes)
+    return rows, len(shapes), k3_dispatch_sweep(shapes)
+
+
+def k3_dispatch_sweep(shapes):
+    """K3 over one int8 dispatch at B=256: each distinct geometry held
+    bitwise to the plain version, then timed (device time, the calls
+    queued) with the emit the graph gives its convs, s8 or bf16 (Mixed_7c's
+    branch ends), weighted by how many of the 94 convs have it. Returns
+    dict(ms, bound_ms, rows)."""
+    import torch
+    from ifcb_classifier_tpu_torch.ops.qconv import (
+        conv_out_size, pack_k3_weights, qconv_cuda, qconv_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, total, bound, rows = K3_BATCH, 0.0, 0.0, []
+    for (ci, co, kh, kw, st, pads, H, W), (path, n, n_float) in sorted(
+            shapes.items()):
+        x = torch.randint(-127, 128, (B, H, W, ci), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        w = torch.randint(-127, 128, (co, kh, kw, ci), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        std = 127.0 * 127.0 / 3.0 * (kh * kw * ci) ** 0.5
+        scale = (0.5 + torch.rand(co, device="cuda", generator=gen)) / std
+        bias = 0.5 * torch.randn(co, device="cuda", generator=gen)
+        stride = (st, st)
+        Ho, Wo = conv_out_size(H, W, kh, kw, stride, pads)
+        packed = pack_k3_weights(w)
+        for inv, dtype, convs in ((K3_INV_OUT, torch.int8, n - n_float),
+                                  (None, torch.bfloat16, n_float)):
+            if not convs:
+                continue
+            out = torch.empty((B, Ho, Wo, co), dtype=dtype, device="cuda")
+            call = lambda: qconv_cuda(x, w, scale, bias, stride, pads, inv,
+                                      out_dtype=dtype, out=out, pack=packed)
+            call()
+            ref = qconv_plain(x, w, scale, bias, stride, pads, inv,
+                              out_dtype=dtype)
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"K3 {path} B={B} emit {dtype}: "
+                    f"{int((out != ref).sum())} values differ from the plain "
+                    "version")
+            del ref
+            ms = cuda_ms(call, 10, queued=True)
+            b, by = k3_bound(B, H, W, ci, co, kh, kw, Ho, Wo,
+                             out.element_size())
+            total += convs * ms
+            bound += convs * b
+            rows.append(dict(path=path, convs=convs, emit=str(dtype)[6:],
+                             ms=ms, bound_ms=b, bound_by=by))
+            del out
+        del x
+    print(f"K3 per dispatch (the 94 convs of inception_v3 @299 at B={B}, "
+          f"{len(shapes)} geometries, each held bitwise to the plain version "
+          f"and timed once (device time) with the emit the graph gives it, "
+          f"s8 or bf16, weighted by its convs): {total:.4f} ms against a "
+          f"summed bound of {bound:.4f} ms ({total / bound:.2f}x); slowest "
+          "against their bound: " + "; ".join(
+              f"{r['path']} {r['emit']} x{r['convs']} {r['ms']:.4f} ms / "
+              f"{r['bound_ms']:.4f}"
+              for r in sorted(rows, key=lambda r: -(r['ms'] - r['bound_ms'])
+                              * r['convs'])[:8]), flush=True)
+    return dict(ms=total, bound_ms=bound, rows=rows)
 
 
 def write_train_dataset(root, rng):
@@ -949,10 +1062,8 @@ def ptxas_report(log):
         if "Compiling entry function" in ln:
             name = ln.split("'")[1] if "'" in ln else ln.strip()
             rows = re.search(r"Li(\d+)E", name)
-            k3 = re.search(r"qconv_s8_kernelILb(\d)ELi(\d)", name)
-            kernel = ("qconv_s8<{}, {}>".format(
-                "16-byte loads" if k3.group(1) == "1" else "byte gather",
-                ("s8", "bf16", "f32")[int(k3.group(2))]) if k3
+            k3 = re.search(r"qconv_s8_kernelILi(\d+)E", name)
+            kernel = (f"qconv_s8<BN={k3.group(1)}>" if k3
                       else "preprocess_gray_taps" if "taps" in name else
                       "preprocess_{}_resize<{}, {} rows>".format(
                           "rgb" if "rgb_resize" in name else "gray",
@@ -1320,7 +1431,7 @@ def main():
     # 2. K1 and K2 against their plain versions
     rows, mix_rows, max_err = check_k1(rng)
     k2_rows, k2_err = check_k2(rng)
-    k3_rows, n_geoms = check_k3()
+    k3_rows, n_geoms, k3_sweep = check_k3()
 
     # 3. the RUN path, 3b. its int8 tier, 4. the TRAIN path
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1390,6 +1501,11 @@ def main():
         "library_ms": k3_row["library_ms"], "shape": K3_MAIN,
         "device_ms": k3_row["device_ms"], "host_us": k3_row["host_us"],
         "geometries_checked": n_geoms,
+        # K3 over one int8 dispatch (94 convs, B=256, each conv's own emit,
+        # device time):
+        # the summed ms and summed bound of k3_dispatch_sweep
+        "dispatch_ms": k3_sweep["ms"],
+        "dispatch_bound_ms": k3_sweep["bound_ms"],
         "shapes": [{k: r[k] for k in ("name", "ms", "device_ms", "host_us",
                                       "bound_ms", "bound_by", "plain_ms",
                                       "library_ms", "int_mm_ms")}

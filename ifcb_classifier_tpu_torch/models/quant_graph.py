@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.qconv import conv_out_size, qconv
+from ..ops.qconv import conv_out_size, pack_k3_weights, qconv
 from .layers import avg_pool as _avg_pool_f32
 from .layers import max_pool as _max_pool_f32
 from .quant_resident import (_norm, _q8, f32, CalibCtxBase, QuantCtxBase,
@@ -130,6 +130,16 @@ class _QuantCtx(QuantCtxBase):
             cache[s_x] = q["w_scale"] * f32(s_x)
         return cache[s_x]
 
+    @staticmethod
+    def _pack(q, xq):
+        """K3's packed weights (ops/qconv.pack_k3_weights), made once per
+        conv and kept with its weights; none on the CPU."""
+        if xq.device.type == "cpu":
+            return None
+        if "k3" not in q:
+            q["k3"] = pack_k3_weights(q["w"])
+        return q["k3"]
+
     def conv(self, x, path, stride=1, padding=0, emit="self", dst=None):
         strides, pads = _norm(stride, padding)
         key = "/".join(path)
@@ -151,7 +161,8 @@ class _QuantCtx(QuantCtxBase):
                                    strides, pads)
             out, c_off = dst.slot(key, B, Ho, Wo, xq.device)
         y = qconv(xq, q["w"], self._mul(q, s_x), q["bias"], strides, pads,
-                  inv, out_dtype=self.dtype, out=out, c_off=c_off)
+                  inv, out_dtype=self.dtype, out=out, c_off=c_off,
+                  pack=self._pack(q, xq))
         return y if emit is None else (y, s_out)
 
     def group(self, out_keys, extra=()):

@@ -276,7 +276,10 @@ def _tap_scratch(B, S, r, device):
 
 
 def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` (a CUDA device with its index)
+    as an int, from PyTorch's raw-stream query: a Stream object would cost
+    microseconds a launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def tap_tables_cuda(sizes, canvas_size: int, out_size: int):

@@ -258,6 +258,132 @@ def test_qconv_writes_its_channel_slot():
               c_off=40)
 
 
+def _k3_weights(geom, seed):
+    ci, co, kh, kw = geom[:4]
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        -127, 128, (co, kh, kw, ci), dtype=np.int8))
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES,
+                         ids=["x".join(map(str, g)) for g in GEOMETRIES])
+def test_k3_pack_holds_the_weights(geom):
+    """K3's packed weights (ops/qconv.pack_k3_weights): the K-major
+    [Co_pad, K_pad] matrix unpacks to w in (kh, kw, ci) order, and its
+    padding is zero; K_pad is K rounded up to the plan's K3_K_ALIGN."""
+    from ifcb_classifier_tpu_torch.ops.qconv import (K3_K_ALIGN, k3_plan,
+                                                     pack_k3_weights)
+    ci, co, kh, kw = geom[:4]
+    w = _k3_weights(geom, seed=sum(geom))
+    K = kh * kw * ci
+    pack = pack_k3_weights(w)
+    co_pad, k_pad = pack.w.shape
+    plan = k3_plan(1, 1, 1, co, K, ci)
+    assert (co_pad, k_pad, pack.bn) == (plan["co_pad"], plan["k_pad"],
+                                        plan["bn"])
+    assert (pack.stages, pack.smem) == (plan["stages"], plan["smem"])
+    assert pack.w.dtype == torch.int8 and pack.map is None  # CPU: none
+    assert k_pad % K3_K_ALIGN == 0 and K <= k_pad < K + K3_K_ALIGN
+    assert co_pad % pack.bn == 0 and co <= co_pad < co + pack.bn
+    assert torch.equal(pack.w[:co, :K].reshape(co, kh, kw, ci), w)
+    assert not pack.w[co:].any() and not pack.w[:, K:].any()
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES,
+                         ids=["x".join(map(str, g)) for g in GEOMETRIES])
+def test_k3_launch_plan(geom):
+    """K3's launch plan (ops/qconv.k3_plan) at every conv geometry: a tile
+    width wgmma takes for s8 and K3 instantiates, tiles that cover every
+    (m, co) exactly once, ragged edges included, and a ring that fits the
+    227 KB of shared memory a block may use (half an SM's 228 KB, less the
+    1 KB each block reserves, where two blocks share an SM)."""
+    from ifcb_classifier_tpu_torch.ops import qconv as Q
+    ci, co, kh, kw, st, ph, pw = geom
+    for B, H in ((1, 8), (3, 17), (256, 35)):
+        Ho, Wo = Q.conv_out_size(H, H, kh, kw, (st, st), ((ph, ph), (pw, pw)))
+        M = B * Ho * Wo
+        plan = Q.k3_plan(B, Ho, Wo, co, kh * kw * ci, ci)
+        bn, rows = plan["bn"], plan["rows"]
+        assert bn in Q.WGMMA_S8_N and bn in Q.K3_TILE_N
+        assert plan["n_tiles_n"] * bn == plan["co_pad"]
+        assert (plan["n_tiles_n"] - 1) * bn < co <= plan["co_pad"]
+        assert (plan["tiles_m"] - 1) * rows < M <= plan["tiles_m"] * rows
+        assert plan["tiles"] == plan["tiles_m"] * plan["n_tiles_n"]
+        budget = Q.SMEM_PER_BLOCK if Q.k3_blocks_per_sm(bn) == 1 else \
+            Q.SMEM_PER_SM // 2 - 1024
+        assert Q.K3_MIN_STAGES <= plan["stages"] <= Q.K3_MAX_STAGES
+        assert plan["smem"] == Q.k3_smem_bytes(bn, plan["stages"],
+                                               plan["co_pad"])
+        assert plan["smem"] <= budget <= Q.SMEM_PER_BLOCK
+        assert plan["k_pad"] % 32 == 0 and plan["n_kst"] * Q.K3_BK >= \
+            plan["k_pad"]
+        if M * co <= 1 << 22:  # every (m, co) of the tiles, counted
+            seen = np.zeros((plan["tiles_m"] * rows, plan["co_pad"]), int)
+            for t in range(plan["tiles"]):
+                m0 = (t // plan["n_tiles_n"]) * rows
+                n0 = (t % plan["n_tiles_n"]) * bn
+                seen[m0:m0 + rows, n0:n0 + bn] += 1
+            assert (seen == 1).all()
+
+
+def _im2col(x, kh, kw, stride, pads):
+    """uint8 [M, K] rows of the (kh, kw, ci)-ordered patches of s8 NHWC x,
+    zero outside the image."""
+    import torch.nn.functional as F
+    (pt, pb), (pl, pr) = pads
+    xp = F.pad(x.permute(0, 3, 1, 2).float(), (pl, pr, pt, pb))
+    cols = F.unfold(xp, (kh, kw), stride=stride)  # [B, ci*kh*kw, L]
+    B, ci = x.shape[0], x.shape[3]
+    cols = cols.view(B, ci, kh * kw, -1).permute(0, 3, 2, 1)
+    return cols.reshape(-1, kh * kw * ci).to(torch.int8).view(torch.uint8)
+
+
+@pytest.mark.parametrize("geom,B,H", [
+    ((48, 64, 5, 5, 1, 2, 2), 2, 9),      # Ci = 48: pieces of 3 per tap
+    ((80, 192, 3, 3, 1, 0, 0), 3, 11),    # Ci = 80: 5 per tap, ragged M
+    ((32, 64, 3, 3, 1, 1, 1), 1, 13),     # 4 taps a stage, the pads
+    ((96, 96, 3, 3, 2, 0, 0), 2, 17),     # stride 2
+    ((128, 128, 1, 7, 1, 0, 3), 2, 9),    # the (0, 3) pads
+    ((160, 192, 7, 1, 1, 3, 0), 1, 12),   # the (3, 0) pads, K = 1120
+], ids=["ci48", "ci80", "ci32pad", "stride2", "pad03", "pad30"])
+def test_k3_gather_is_the_im2col(geom, B, H):
+    """The plain mirror of K3's producer (ops/qconv.k3_a_stages_plain:
+    each 16-byte piece's tap walked without a division, zero-filled off the
+    image, past M and past K, written at its 128-byte-swizzled slot)
+    unswizzles to the im2col rows of x, every 128-row block, every
+    128-byte K stage."""
+    from ifcb_classifier_tpu_torch.ops.qconv import k3_a_stages_plain
+    ci, co, kh, kw, st, ph, pw = geom
+    pads = ((ph, ph), (pw, pw))
+    x = torch.from_numpy(np.random.default_rng(H).integers(
+        -127, 128, (B, H, H, ci), dtype=np.int8))
+    cols = _im2col(x, kh, kw, (st, st), pads)
+    M, K = cols.shape
+    k_pad = -(-K // 32) * 32
+    r = torch.arange(128)[:, None]
+    k = torch.arange(128)[None, :]
+    slot = ((k // 16) ^ (r % 8)) * 16 + k % 16  # TMA's 128-byte swizzle
+    assert bool((slot.sort(dim=1).values == k).all())  # a permutation
+    for m0 in range(0, M, 128):
+        stages = k3_a_stages_plain(x, kh, kw, (st, st), pads, m0, k_pad)
+        n_st = stages.shape[0]
+        assert n_st == -(-k_pad // 128)
+        flat = torch.gather(stages, 2, slot.expand(n_st, 128, 128))
+        got = flat.permute(1, 0, 2).reshape(128, n_st * 128)
+        want = torch.zeros_like(got)
+        want[:min(128, M - m0), :K] = cols[m0:m0 + 128]
+        assert torch.equal(got, want), m0
+
+
+def test_quant_graph_packs_k3_weights_on_the_card_only():
+    """The int8 graph keeps K3's pack with each conv's weights (made once,
+    on the card); on the CPU it makes none."""
+    from ifcb_classifier_tpu_torch.models.quant_graph import _QuantCtx
+    q = {"w": torch.zeros((8, 1, 1, 16), dtype=torch.int8)}
+    assert _QuantCtx._pack(q, torch.zeros((1, 2, 2, 16),
+                                          dtype=torch.int8)) is None
+    assert "k3" not in q
+
+
 def test_qconv_cuda_refuses_cpu_tensors():
     """The kernel's wrapper never computes on the CPU: a CPU tensor is
     refused (qconv sends it to the plain version instead)."""
@@ -302,25 +428,44 @@ def test_supports_quant():
 def test_k3_matches_plain_on_the_card():
     """Runs where a GPU and nvcc exist (chip_smoke.py covers every conv
     geometry at the main path's shapes); skips on a machine without a
-    GPU. K3's output is bitwise equal to the plain version's."""
+    GPU. K3's output is bitwise equal to the plain version's, with the
+    weights packed per call and packed once, at B=1, at an M that is no
+    multiple of the 128-row tile, and into a concat buffer at a channel
+    offset that is no multiple of 16; Ci = 5 takes the byte-wise gather."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU and nvcc")
-    from ifcb_classifier_tpu_torch.ops.qconv import qconv_cuda, qconv_plain
+    from ifcb_classifier_tpu_torch.ops.qconv import (
+        pack_k3_weights, qconv_cuda, qconv_plain)
     g = torch.Generator().manual_seed(5)
-    for ci, co, kh, kw, st, ph, pw in ((3, 32, 3, 3, 2, 0, 0),
-                                       (80, 192, 3, 3, 1, 0, 0),
-                                       (160, 192, 1, 7, 1, 0, 3)):
-        x = torch.randint(-127, 128, (3, 17, 19, ci), dtype=torch.int8,
+    for (ci, co, kh, kw, st, ph, pw), B in (((3, 32, 3, 3, 2, 0, 0), 3),
+                                          ((80, 192, 3, 3, 1, 0, 0), 3),
+                                          ((160, 192, 1, 7, 1, 0, 3), 3),
+                                          ((64, 96, 3, 3, 1, 1, 1), 1),
+                                          ((48, 64, 5, 5, 1, 2, 2), 1),
+                                          ((5, 24, 3, 3, 1, 1, 1), 1)):
+        x = torch.randint(-127, 128, (B, 17, 19, ci), dtype=torch.int8,
                           generator=g).cuda()
         w = torch.randint(-127, 128, (co, kh, kw, ci), dtype=torch.int8,
                           generator=g).cuda()
         scale = (torch.rand(co, generator=g) * 1e-4).cuda()
         bias = torch.randn(co, generator=g).cuda()
         pads = ((ph, ph), (pw, pw))
+        pack = pack_k3_weights(w)
         for inv, dtype in ((0.5, torch.int8), (None, torch.bfloat16)):
-            got = qconv_cuda(x, w, scale, bias, (st, st), pads, inv,
-                             out_dtype=dtype)
-            torch.cuda.synchronize()
             ref = qconv_plain(x, w, scale, bias, (st, st), pads, inv,
                               out_dtype=dtype)
-            assert torch.equal(got, ref), (ci, co, kh, kw, inv)
+            for pk in (None, pack):
+                got = qconv_cuda(x, w, scale, bias, (st, st), pads, inv,
+                                 out_dtype=dtype, pack=pk)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (ci, co, kh, kw, inv, pk)
+        assert (B * ref.shape[1] * ref.shape[2]) % 128
+        buf = torch.full((*ref.shape[:3], co + 40), 77, dtype=torch.int8,
+                         device="cuda")
+        qconv_cuda(x, w, scale, bias, (st, st), pads, 0.5, out=buf, c_off=8,
+                   pack=pack)
+        want = torch.full_like(buf, 77)
+        want[..., 8:8 + co] = qconv_plain(x, w, scale, bias, (st, st), pads,
+                                          0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(buf, want), (ci, co, kh, kw)

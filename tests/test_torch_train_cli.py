@@ -22,6 +22,17 @@ N_IMG = {"alpha": 5, "beta": 5, "gamma": 4}
 ATOL_LOGITS = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads for this module: the suite runs six test
+    processes on eight cores, and the CPU training steps slow down many
+    times over when every process spreads them over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _train(src, outdir, *extra, emax=2):
     from ifcb_classifier_tpu_torch.cli import main_cli
     main_cli(["--batch", "4", "--loaders", "2", "TRAIN", src, "inception_v3",
