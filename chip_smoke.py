@@ -29,9 +29,16 @@ Phases (any failure exits non-zero and prints no result):
      RGB canvases at every rung, B in {16, 128}, with and without the norm
      and flips: f32 within 1e-5 before the norm and 1e-4 after it, bf16
      equal to its f32 result rounded once; sizes outside [0, S] finish
-     finite and unreadable canvases are refused. Per rung at B=128, bf16
+     finite and unreadable canvases are refused. Per rung it prints K2's
+     tile plan and launch shape in bf16 and f32 (fails if bf16 has fewer
+     than two blocks an SM, or if the card's plan differs from its Python
+     mirror k2_plan, which the CPU tests walk). Per rung at B=128, bf16
      with norm and flips, it is timed as K1 is (F.interpolate on the full
-     RGB canvas as the yardstick).
+     RGB canvas as the yardstick), and again on TRAIN's own size mix (the
+     batches phase 4's loader forms from roi_sides images, each on the
+     rung of its largest side; the 64 and 128 rungs, which no batch
+     reaches, from their own pools), after holding it there to its plain
+     version as above.
   2c. K3 (csrc/qconv_s8.cu), built beside K1 and K2, is held against its
      plain version (ops/qconv.qconv_plain: a float64 convolution of the
      int8 values, exact, then the f32 epilogue) on the card at every
@@ -436,27 +443,95 @@ def check_k1(rng):
     return rows, mix_rows, max_err
 
 
+def rgb_canvas_of(sizes, S, rng):
+    """uint8 [B,S,S,3], each image's (h, w) filled from rng, zero beyond."""
+    canvas = np.zeros((len(sizes), S, S, 3), np.uint8)
+    for b, (h, w) in enumerate(sizes):
+        canvas[b, :h, :w] = rng.integers(0, 256, size=(h, w, 3),
+                                         dtype=np.uint8)
+    return canvas
+
+
 def make_rgb_canvas(B, S, rng, full=False):
     """uint8 [B,S,S,3] zero outside each image, int32 sizes as make_canvas
     draws them."""
     gray, sizes = make_canvas(B, S, rng, full=full)
-    canvas = np.zeros((B, S, S, 3), np.uint8)
-    for b, (h, w) in enumerate(sizes):
-        canvas[b, :h, :w] = rng.integers(0, 256, size=(h, w, 3),
-                                         dtype=np.uint8)
-    return canvas, sizes
+    return rgb_canvas_of(sizes, S, rng), sizes
+
+
+def train_mix(rng, n_batches=200):
+    """{rung: (int32 sides [TRAIN_BATCH, 2], where from)} of the batches
+    TRAIN's loader forms from roi_sides images: batches of TRAIN_BATCH
+    drawn as phase 4's dataset is, each on the rung of its largest side;
+    a rung's first such batch ("batch", with the count of batches that
+    landed there), or, on a rung no batch reached (64, 128), TRAIN_BATCH
+    sides from the images whose own rung it is ("pool", as K1's
+    mix_canvas)."""
+    from ifcb_classifier_tpu_torch.data.pipeline import ladder_size
+    batches = {S: [] for S in LADDER}
+    pools = {S: [] for S in LADDER}
+    for _ in range(n_batches):
+        sides = roi_sides(TRAIN_BATCH, rng).astype(np.int32)
+        batches[ladder_size(int(sides.max()))].append(sides)
+        for hw in sides:
+            pools[ladder_size(int(hw.max()))].append(hw)
+    mix = {}
+    for S in LADDER:
+        if batches[S]:
+            mix[S] = (batches[S][0], f"batch (1 of {len(batches[S])})")
+        else:
+            pool = np.array(pools[S], np.int32)
+            mix[S] = (pool[rng.integers(0, len(pool), TRAIN_BATCH)],
+                      f"pool ({len(pool)} images)")
+    return mix
+
+
+def check_k2_against_plain(c, s, f, S, B, what):
+    """K2 f32 against its plain version, with and without the norm and
+    the flips (TOL_F32, TOL_F32_NORM), and its bf16 output equal to the f32
+    one rounded once. Returns the f32 error with the norm and flips."""
+    import torch
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        preprocess_rgb_cuda, preprocess_rgb_plain)
+    for mean, std, tol in ((None, None, TOL_F32),
+                           (RGB_MEAN, RGB_STD, TOL_F32_NORM)):
+        for flips in (None, f):
+            ref = preprocess_rgb_plain(c, s, out_size=R, mean=mean, std=std,
+                                       flips=flips)
+            got = preprocess_rgb_cuda(c, s, out_size=R, mean=mean, std=std,
+                                      flips=flips, dtype=torch.float32)
+            bf = preprocess_rgb_cuda(c, s, out_size=R, mean=mean, std=std,
+                                     flips=flips, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not err <= tol:
+                raise AssertionError(
+                    f"K2 f32 S={S} B={B} {what} norm={mean is not None} "
+                    f"flips={flips is not None}: max|err| {err} > {tol}")
+            if not torch.equal(bf, got.to(torch.bfloat16)):
+                n_diff = int((bf != got.to(torch.bfloat16)).sum())
+                raise AssertionError(
+                    f"K2 bf16 S={S} B={B} {what}: {n_diff} values differ "
+                    "from the f32 result rounded to bf16")
+    return err
+
+
+# what K2's plan fixes, in k2_resize_shape and k2_plan alike
+K2_PLAN_KEYS = ("rows", "cols", "nbuf", "window_rows", "window_bytes",
+                "smem", "threads")
 
 
 def check_k2(rng):
-    """Phase 2, K2. Returns (per-rung timing rows, max f32 error after the
-    norm)."""
+    """Phase 2, K2. Returns (per-rung timing rows, TRAIN-mix rows, max f32
+    error after the norm)."""
     import torch
     import torch.nn.functional as F
     from ifcb_classifier_tpu_torch.ops.preprocess import (
-        k2_resize_shape, preprocess_rgb_cuda, preprocess_rgb_plain)
+        k2_plan, k2_resize_shape, preprocess_rgb_cuda, preprocess_rgb_plain)
     dev = torch.device("cuda")
     side_rng = np.random.default_rng(2)
-    max_err, rows = 0.0, []
+    mix = train_mix(np.random.default_rng(3))
+    max_err, rows, mix_rows = 0.0, [], []
     for S in LADDER:
         check_out_of_range(S, side_rng, rgb=True)
         check_rejects(S, rgb=True)
@@ -466,34 +541,36 @@ def check_k2(rng):
             s = torch.from_numpy(sizes).to(dev)
             f = torch.from_numpy(side_rng.integers(0, 2, (B, 2))
                                  .astype(np.uint8)).to(dev)
-            for mean, std, tol in ((None, None, TOL_F32),
-                                   (RGB_MEAN, RGB_STD, TOL_F32_NORM)):
-                for flips in (None, f):
-                    ref = preprocess_rgb_plain(c, s, out_size=R, mean=mean,
-                                               std=std, flips=flips)
-                    got = preprocess_rgb_cuda(c, s, out_size=R, mean=mean,
-                                              std=std, flips=flips,
-                                              dtype=torch.float32)
-                    bf = preprocess_rgb_cuda(c, s, out_size=R, mean=mean,
-                                             std=std, flips=flips,
-                                             dtype=torch.bfloat16)
-                    torch.cuda.synchronize()
-                    err = float((got - ref).abs().max())
-                    if not err <= tol:
-                        raise AssertionError(
-                            f"K2 f32 S={S} B={B} norm={mean is not None} "
-                            f"flips={flips is not None}: max|err| {err} > "
-                            f"{tol}")
-                    if mean is not None:
-                        max_err = max(max_err, err)
-                    if not torch.equal(bf, got.to(torch.bfloat16)):
-                        n_diff = int((bf != got.to(torch.bfloat16)).sum())
-                        raise AssertionError(
-                            f"K2 bf16 S={S} B={B}: {n_diff} values differ "
-                            "from the f32 result rounded to bf16")
+            err = check_k2_against_plain(c, s, f, S, B, "uniform sizes")
+            max_err = max(max_err, err)
             print(f"K2 check S={S} B={B}: ok (f32 max|err| with norm and "
                   f"flips {err:.3g}; sizes outside [0, S] finite; "
                   "unaligned canvas refused)", flush=True)
+        # the plan and its launch shape; two blocks an SM at least in bf16;
+        # the card's plan (C) the same as its mirror that the CPU tests
+        # walk (ops/preprocess.k2_plan)
+        dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+        shapes = {name: k2_resize_shape(TRAIN_BATCH, S, R, dtype)
+                  for name, dtype in dtypes.items()}
+        for name, sh in shapes.items():
+            plan = k2_plan(S, R, dtypes[name])
+            differ = {k: (sh[k], plan[k]) for k in K2_PLAN_KEYS
+                      if sh[k] != plan[k]}
+            if differ:
+                raise AssertionError(
+                    f"K2 plan S={S} {name}: the card's plan and k2_plan "
+                    f"differ (card, mirror): {differ}")
+        if shapes["bf16"]["per_sm"] < 2:
+            raise AssertionError(f"K2 S={S} bf16: {shapes['bf16']['per_sm']}"
+                                 " block per SM, the plan needs 2 or more")
+        for name, sh in shapes.items():
+            print("K2 plan S={S} {name}: tiles of {rows} x {cols} (one "
+                  "row step: {ncol} tiles), {nbuf} canvas buffer(s) of "
+                  "{window_rows} rows x {window_bytes} B, {smem} B shared "
+                  "memory, {threads} threads, {per_sm} blocks per SM, grid "
+                  "{grid} at B={B}".format(S=S, name=name, B=TRAIN_BATCH,
+                                           ncol=-(-R // sh["cols"]), **sh),
+                  flush=True)
         # timing at the training batch, bf16 + norm + flips
         B = TRAIN_BATCH
         kernel = lambda: preprocess_rgb_cuda(
@@ -511,18 +588,39 @@ def check_k2(rng):
                    library_ms=cuda_ms(lib, 5))
         row["bound_ms"], row["bound_by"] = k1_bound(sizes, S, R, 2,
                                                     channels=3, flips=True)
-        (row["smem"], row["per_sm"], row["grid"], row["threads"],
-         row["step"]) = k2_resize_shape(B, S, R)
+        row.update(shapes["bf16"])
         rows.append(row)
         print("K2 time S={S} B={B} bf16 norm flips: kernel {ms:.4f} ms "
               "(device alone {device_ms:.4f} ms; wrapper host {host_us:.1f} "
               "us per call), plain {plain_ms:.4f} ms, F.interpolate "
               "(resize only, full RGB canvas) {library_ms:.4f} ms, bound "
               "{bound_ms:.4f} ms ({bound_by}); resize grid {grid} x "
-              "{threads} threads, {step} rows per item, {per_sm} blocks per "
-              "SM, {smem} B shared memory each".format(**row), flush=True)
+              "{threads} threads, tiles of {rows} x {cols}, {per_sm} blocks "
+              "per SM, {smem} B shared memory each".format(**row),
+              flush=True)
         del c, s, f, xf
-    return rows, max_err
+        # TRAIN's own size mix: held to the plain version, then timed
+        msizes, where = mix[S]
+        c = torch.from_numpy(rgb_canvas_of(msizes, S, side_rng)).to(dev)
+        s = torch.from_numpy(msizes).to(dev)
+        f = torch.from_numpy(side_rng.integers(0, 2, (B, 2))
+                             .astype(np.uint8)).to(dev)
+        err = check_k2_against_plain(c, s, f, S, B, "TRAIN mix")
+        max_err = max(max_err, err)
+        mrow = dict(S=S, B=B, sides_from=where,
+                    median_side=float(np.median(msizes)),
+                    max_side=int(msizes.max()), ms=cuda_ms(kernel, 20),
+                    device_ms=cuda_ms(kernel, 20, queued=True))
+        mrow["bound_ms"], mrow["bound_by"] = k1_bound(msizes, S, R, 2,
+                                                      channels=3, flips=True)
+        mix_rows.append(mrow)
+        print("K2 time S={S} B={B} bf16 norm flips, TRAIN size mix "
+              "({sides_from}; median side {median_side:.0f}, largest "
+              "{max_side}): held to the plain version, kernel {ms:.4f} ms "
+              "(device alone {device_ms:.4f} ms), bound {bound_ms:.4f} ms "
+              "({bound_by})".format(**mrow), flush=True)
+        del c, s, f
+    return rows, mix_rows, max_err
 
 
 def inception_conv_shapes():
@@ -1065,8 +1163,10 @@ def ptxas_report(log):
             k3 = re.search(r"qconv_s8_kernelILi(\d+)E", name)
             kernel = (f"qconv_s8<BN={k3.group(1)}>" if k3
                       else "preprocess_gray_taps" if "taps" in name else
-                      "preprocess_{}_resize<{}, {} rows>".format(
-                          "rgb" if "rgb_resize" in name else "gray",
+                      "preprocess_rgb_resize<{}, 16-row tiles>".format(
+                          "bf16" if "bfloat16" in name else "f32")
+                      if "rgb_resize" in name else
+                      "preprocess_gray_resize<{}, {} rows>".format(
                           "bf16" if "bfloat16" in name else "f32",
                           rows.group(1) if rows else "?")
                       if "resize" in name else name)
@@ -1430,7 +1530,7 @@ def main():
     rng = np.random.default_rng(0)
     # 2. K1 and K2 against their plain versions
     rows, mix_rows, max_err = check_k1(rng)
-    k2_rows, k2_err = check_k2(rng)
+    k2_rows, k2_mix_rows, k2_err = check_k2(rng)
     k3_rows, n_geoms, k3_sweep = check_k3()
 
     # 3. the RUN path, 3b. its int8 tier, 4. the TRAIN path
@@ -1487,7 +1587,13 @@ def main():
         "bound_ms": k2_row["bound_ms"], "bound_by": k2_row["bound_by"],
         "library_ms": k2_row["library_ms"], "S": k2_S,
         "kernels_per_launch": 2, "device_ms": k2_row["device_ms"],
-        "host_us": k2_row["host_us"]}, {
+        "host_us": k2_row["host_us"], "per_sm": k2_row["per_sm"],
+        "tile_cols": k2_row["cols"],
+        # B=128 canvases of the batches TRAIN forms from roi_sides images
+        # (bf16, norm, flips): the rungs its batches land on
+        "train_mix": [{k: r[k] for k in ("S", "ms", "device_ms", "bound_ms",
+                                         "bound_by", "sides_from")}
+                      for r in k2_mix_rows if r["S"] in (512, 1024)]}, {
         "name": "k3_qconv_s8", "route": "cuda",
         "source": "ifcb_classifier_tpu_torch/csrc/qconv_s8.cu",
         # an XLA fusion on the TPU, no pallas_call: _QuantCtx.conv's s8

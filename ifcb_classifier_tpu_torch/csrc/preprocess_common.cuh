@@ -1,9 +1,10 @@
 // Shared by the preprocess kernels K1 (preprocess_gray.cu) and K2
 // (preprocess_rgb.cu): the norm constants, exact division, the PIL-BILINEAR
 // window geometry, cp.async helpers, the tap-table prologue kernel that
-// builds each image's trimmed tap windows once per axis, the shared-memory
-// layout of a resize kernel, its cached launch shape and its launch. See
-// preprocess_gray.cu for the design these serve.
+// builds each image's trimmed tap windows once per axis, and the host side
+// of a resize kernel's launch: its occupancy, its cached launch shape and
+// its launch as the taps kernel's programmatic dependent. See
+// preprocess_gray.cu and preprocess_rgb.cu for the designs these serve.
 
 #pragma once
 
@@ -18,7 +19,6 @@
 
 namespace {
 
-constexpr int kMaxThreads = 512;  // threads per resize block, at most
 constexpr int kTapThreads = 256;  // threads per taps block
 
 struct Norm {
@@ -120,13 +120,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// 1. one thread per window (b, axis, i); g = (b*2 + axis)*r + i
+// 1. one thread per window (b, axis, i); g = (b*2 + axis)*r + i. With
+//    kZero it also zeroes *counter, by which K2's resize kernel hands out
+//    its work once this grid is done (K1 passes none).
+template <bool kZero>
 __global__ void __launch_bounds__(kTapThreads)
 preprocess_gray_taps(const int32_t* __restrict__ sizes,
                      int2* __restrict__ lo_n, float* __restrict__ wt,
-                     int B, int S, int r, int T) {
+                     int B, int S, int r, int T, int* counter) {
     // the resize kernel may launch now; it waits for this grid's tables
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    if (kZero && blockIdx.x == 0 && threadIdx.x == 0) *counter = 0;
     const unsigned nwin = (unsigned)B * 2u * (unsigned)r;
     const unsigned g = blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= nwin) return;
@@ -155,30 +159,6 @@ preprocess_gray_taps(const int32_t* __restrict__ sizes,
     lo_n[g] = make_int2(first, min(kept, T));
 }
 
-// Byte offsets of the resize kernel's dynamic shared memory, the same on
-// the host (to size it) and on the device. Sp = bytes of one staged canvas
-// row: S rounded up to 16 for a gray canvas, three times that for RGB.
-struct Smem {
-    size_t stage, tmp, canvas, hw, hln, vw, vln, total;
-};
-
-__host__ __device__ __forceinline__ Smem smem_layout(int kStep, int Sp,
-                                                     int r, int T,
-                                                     int rows_cap,
-                                                     int out_bytes) {
-    Smem m;
-    size_t o = 0;
-    m.stage = o;  o = align16(o + (size_t)kStep * r * 3 * out_bytes + 16);
-    m.tmp = o;    o = align16(o + (size_t)kStep * Sp * sizeof(float));
-    m.canvas = o; o = align16(o + (size_t)rows_cap * Sp);
-    m.hw = o;     o = align16(o + (size_t)T * r * sizeof(float));
-    m.hln = o;    o = align16(o + (size_t)r * sizeof(int2));
-    m.vw = o;     o = align16(o + (size_t)kStep * T * sizeof(float));
-    m.vln = o;    o = align16(o + (size_t)kStep * sizeof(int2));
-    m.total = o;
-    return m;
-}
-
 // Canvas rows that kStep consecutive untrimmed windows span: from
 // floor(c0 - f - 0.5) - 1 to ceil(c1 + f - 0.5) + 1 with
 // c1 - c0 = (kStep-1)*scale, i.e. at most (kStep-1)*scale + 2*fscale + 5
@@ -189,62 +169,54 @@ int rows_capacity(int kStep, int S, int r) {
            + 6;
 }
 
+template <bool kZero>
 cudaError_t launch_taps(const int32_t* sizes, int2* lo_n, float* wt, int B,
-                        int S, int r, int T, cudaStream_t stream) {
+                        int S, int r, int T, cudaStream_t stream,
+                        int* counter) {
     const long long nwin = (long long)B * 2 * r;
     if (nwin >= (1LL << 31)) return cudaErrorInvalidValue;
     const long long blocks = (nwin + kTapThreads - 1) / kTapThreads;
-    preprocess_gray_taps<<<(unsigned)blocks, kTapThreads, 0, stream>>>(
-        sizes, lo_n, wt, B, S, r, T);
+    preprocess_gray_taps<kZero><<<(unsigned)blocks, kTapThreads, 0, stream>>>(
+        sizes, lo_n, wt, B, S, r, T, counter);
     return cudaGetLastError();
 }
 
-// The resize kernel's launch shape: rows per item, dynamic shared memory
-// per block, threads (one per output column, r rounded up to whole warps),
-// the blocks that fit on one SM at once, and the SMs. It depends on the
-// device, the output dtype, S, r and T only, so it is computed once per
-// such key and cached; the grid follows from B.
-struct Shape {
-    int step, rows_cap, threads, per_sm, sms;
-    size_t smem;
-};
-
-// one wave of blocks, and no more blocks than work items
-long long grid_of(const Shape& sh, int B, int r) {
-    const long long items = (long long)B * ((r + sh.step - 1) / sh.step);
-    const long long wave = (long long)sh.sms * max(sh.per_sm, 1);
-    return wave < items ? wave : items;
-}
-
-// The rest of a resize kernel's shape once the caller has set its step,
-// rows_cap and smem: one thread per output column (r rounded up to whole
-// warps), the SMs and the blocks that fit on one.
+// The SMs, and the blocks of `kernel` resident on one at `threads` threads
+// and `smem` bytes of dynamic shared memory (which must fit one block).
 template <typename Kernel>
-cudaError_t fill_shape(Kernel kernel, int dev, int r, Shape* sh) {
-    sh->threads = min(kMaxThreads, max(64, (r + 31) / 32 * 32));
+cudaError_t occupancy(Kernel kernel, int dev, int threads, size_t smem,
+                      int* sms, int* per_sm) {
     int optin = 0;
     cudaError_t e;
-    if ((e = cudaDeviceGetAttribute(&sh->sms, cudaDevAttrMultiProcessorCount,
+    if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess) return e;
     if ((e = cudaDeviceGetAttribute(
              &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
         != cudaSuccess) return e;
-    if (sh->smem > (size_t)optin) return cudaErrorInvalidValue;
+    if (smem > (size_t)optin) return cudaErrorInvalidValue;
     // the card's largest, so that no other cached shape of this kernel on
     // this device needs it set again
     if ((e = cudaFuncSetAttribute(
              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin))
         != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &sh->per_sm, kernel, sh->threads, sh->smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                         threads, smem);
+}
+
+// one wave of persistent blocks, and no more blocks than work items
+long long one_wave(int sms, int per_sm, long long items) {
+    const long long wave = (long long)sms * max(per_sm, 1);
+    return wave < items ? wave : items;
 }
 
 // make(dev, &shape) once per (device, S, r, T), then from a cache: one
-// cache per instantiation, i.e. per kernel family and output type.
-template <typename OutT, typename Make>
-cudaError_t cached_shape(int S, int r, int T, Shape* sh, Make make) {
+// cache per instantiation, i.e. per kernel family and output type. A
+// resize kernel's launch shape depends on those alone; its grid follows
+// from B.
+template <typename OutT, typename ShapeT, typename Make>
+cudaError_t cached_shape(int S, int r, int T, ShapeT* sh, Make make) {
     static std::mutex mu;
-    static std::map<std::tuple<int, int, int, int>, Shape> cache;
+    static std::map<std::tuple<int, int, int, int>, ShapeT> cache;
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
@@ -261,15 +233,15 @@ cudaError_t cached_shape(int S, int r, int T, Shape* sh, Make make) {
 }
 
 // A resize kernel as a programmatic dependent of the taps kernel before
-// it on `stream`, in the given shape.
+// it on `stream`.
 template <typename... Params, typename... Args>
-cudaError_t launch_dependent(void (*kernel)(Params...), const Shape& sh,
-                             int B, int r, cudaStream_t stream,
+cudaError_t launch_dependent(void (*kernel)(Params...), long long grid,
+                             int threads, size_t smem, cudaStream_t stream,
                              Args... args) {
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)grid_of(sh, B, r));
-    cfg.blockDim = dim3(sh.threads);
-    cfg.dynamicSmemBytes = sh.smem;
+    cfg.gridDim = dim3((unsigned)grid);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;

@@ -83,6 +83,32 @@
 
 namespace {
 
+constexpr int kMaxThreads = 512;  // threads per resize block, at most
+
+// Byte offsets of the resize kernel's dynamic shared memory, the same on
+// the host (to size it) and on the device. Sp = bytes of one staged canvas
+// row: S rounded up to 16.
+struct Smem {
+    size_t stage, tmp, canvas, hw, hln, vw, vln, total;
+};
+
+__host__ __device__ __forceinline__ Smem smem_layout(int kStep, int Sp,
+                                                     int r, int T,
+                                                     int rows_cap,
+                                                     int out_bytes) {
+    Smem m;
+    size_t o = 0;
+    m.stage = o;  o = align16(o + (size_t)kStep * r * 3 * out_bytes + 16);
+    m.tmp = o;    o = align16(o + (size_t)kStep * Sp * sizeof(float));
+    m.canvas = o; o = align16(o + (size_t)rows_cap * Sp);
+    m.hw = o;     o = align16(o + (size_t)T * r * sizeof(float));
+    m.hln = o;    o = align16(o + (size_t)r * sizeof(int2));
+    m.vw = o;     o = align16(o + (size_t)kStep * T * sizeof(float));
+    m.vln = o;    o = align16(o + (size_t)kStep * sizeof(int2));
+    m.total = o;
+    return m;
+}
+
 // A work item of the resize kernel: kStep output rows from i0 of image b,
 // and the canvas rows [ymin, ymin + nrows) that their vertical windows
 // touch. Items are walked in order, so the image's geometry is computed
@@ -277,13 +303,31 @@ preprocess_gray_resize(const uint8_t* __restrict__ canvas,
     }
 }
 
+// The resize kernel's launch shape: rows per item, dynamic shared memory
+// per block, threads (one per output column, r rounded up to whole warps),
+// the blocks that fit on one SM at once, and the SMs. It depends on the
+// device, the output dtype, S, r and T only, so it is computed once per
+// such key and cached; the grid follows from B.
+struct Shape {
+    int step, rows_cap, threads, per_sm, sms;
+    size_t smem;
+};
+
+// one wave of blocks, and no more blocks than work items
+long long grid_of(const Shape& sh, int B, int r) {
+    return one_wave(sh.sms, sh.per_sm,
+                    (long long)B * ((r + sh.step - 1) / sh.step));
+}
+
 template <typename OutT, int kStep>
 cudaError_t resize_shape(int dev, int S, int r, int T, Shape* sh) {
     sh->step = kStep;
     sh->rows_cap = rows_capacity(kStep, S, r);
     sh->smem = smem_layout(kStep, (S + 15) & ~15, r, T, sh->rows_cap,
                            (int)sizeof(OutT)).total;
-    return fill_shape(preprocess_gray_resize<OutT, kStep>, dev, r, sh);
+    sh->threads = min(kMaxThreads, max(64, (r + 31) / 32 * 32));
+    return occupancy(preprocess_gray_resize<OutT, kStep>, dev, sh->threads,
+                     sh->smem, &sh->sms, &sh->per_sm);
 }
 
 // 16 rows per item at S <= 512, 8 above
@@ -304,13 +348,14 @@ cudaError_t launch_resize(const uint8_t* canvas, const int32_t* sizes,
     cudaError_t e = shape_for<OutT>(S, r, T, &sh);
     if (e != cudaSuccess) return e;
     OutT* o = reinterpret_cast<OutT*>(out);
+    const long long grid = grid_of(sh, B, r);
     return sh.step == 16
-        ? launch_dependent(preprocess_gray_resize<OutT, 16>, sh, B, r,
-                           stream, canvas, sizes, lo_n, wt, o, B, S, r, T,
-                           sh.rows_cap, nm)
-        : launch_dependent(preprocess_gray_resize<OutT, 8>, sh, B, r,
-                           stream, canvas, sizes, lo_n, wt, o, B, S, r, T,
-                           sh.rows_cap, nm);
+        ? launch_dependent(preprocess_gray_resize<OutT, 16>, grid,
+                           sh.threads, sh.smem, stream, canvas, sizes, lo_n,
+                           wt, o, B, S, r, T, sh.rows_cap, nm)
+        : launch_dependent(preprocess_gray_resize<OutT, 8>, grid,
+                           sh.threads, sh.smem, stream, canvas, sizes, lo_n,
+                           wt, o, B, S, r, T, sh.rows_cap, nm);
 }
 
 }  // namespace
@@ -322,10 +367,11 @@ extern "C" {
 // wt: f32 [B,2,T,r]. Returns the cudaError_t of the launch (0 = ok).
 int k1_tap_tables(const void* sizes, void* lo_n, void* wt, int B, int S,
                   int r, int T, void* stream) {
-    return (int)launch_taps(static_cast<const int32_t*>(sizes),
-                            static_cast<int2*>(lo_n),
-                            static_cast<float*>(wt), B, S, r, T,
-                            static_cast<cudaStream_t>(stream));
+    return (int)launch_taps<false>(static_cast<const int32_t*>(sizes),
+                                   static_cast<int2*>(lo_n),
+                                   static_cast<float*>(wt), B, S, r, T,
+                                   static_cast<cudaStream_t>(stream),
+                                   nullptr);
 }
 
 // The resize kernel's launch shape for these arguments, for reports:
@@ -371,7 +417,7 @@ int k1_preprocess_gray(const void* canvas, const void* sizes, void* out,
     int2* ln = static_cast<int2*>(lo_n);
     float* w = static_cast<float*>(wt);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t e = launch_taps(sz, ln, w, B, S, r, T, st);
+    cudaError_t e = launch_taps<false>(sz, ln, w, B, S, r, T, st, nullptr);
     if (e != cudaSuccess) return (int)e;
     if (out_bf16)
         return (int)launch_resize<__nv_bfloat16>(cv, sz, ln, w, out, B, S, r,

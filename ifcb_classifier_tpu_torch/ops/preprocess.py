@@ -32,9 +32,12 @@ other.
 The RGB branch (TRAIN's decoded images) is the same function over a
 uint8 [B,S,S,3] canvas with per-channel norm and per-image flips (an
 explicit [B,2] mask, drawn by the caller): ``preprocess_rgb_cuda`` is
-kernel K2 (``csrc/preprocess_rgb.cu``, K1's design for three channels),
-``preprocess_rgb_plain`` its plain version, ``preprocess_rgb`` the
-dispatcher, with the same rules.
+kernel K2 (``csrc/preprocess_rgb.cu``: output tiles of 16 rows by J
+columns), ``preprocess_rgb_plain`` its plain version, ``preprocess_rgb``
+the dispatcher, with the same rules. ``k2_plan`` mirrors K2's launch plan
+(J, its canvas buffers, the window it stages, its shared memory),
+``k2_tile_walk`` its walk over tiles and ``k2_tiles_plain`` computes the
+output tile by tile in the kernel's pass order.
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ __all__ = ["resize_weights", "tap_count", "tap_tables_plain",
            "tap_tables_cuda", "preprocess_gray", "preprocess_gray_plain",
            "preprocess_gray_cuda", "build_k1", "k1_resize_shape",
            "preprocess_rgb", "preprocess_rgb_plain", "preprocess_rgb_cuda",
-           "build_k2", "k2_resize_shape"]
+           "build_k2", "k2_resize_shape", "k2_plan", "k2_tile_walk",
+           "k2_tiles_plain"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -95,6 +99,25 @@ def tap_count(canvas_size: int, out_size: int) -> int:
     return 2 * math.ceil(max(scale, 1.0))
 
 
+def _untrimmed_windows(sizes, canvas_size: int, out_size: int):
+    """(center, fscale, lo, hi) of every window (b, axis, i) before
+    trimming, [B,2,r] (fscale [B,2,1]), with the float32 operations of
+    ``window()`` in csrc/preprocess_common.cuh: one index of margin at each
+    end, clipped to [0, src-1] (hi < lo for an empty axis)."""
+    src_i = torch.as_tensor(sizes, dtype=torch.int32).clamp(
+        0, canvas_size)[..., None]
+    src = src_i.to(torch.float32)                              # [B,2,1]
+    scale = src / torch.full_like(src, float(out_size))
+    fscale = torch.clamp(scale, min=1.0)
+    i = torch.arange(out_size, dtype=torch.float32)
+    center = (i + 0.5) * scale                                 # [B,2,r]
+    lo = torch.clamp(torch.floor(center - fscale - 0.5).to(torch.int32) - 1,
+                     min=0)
+    hi = torch.minimum(torch.ceil(center + fscale - 0.5).to(torch.int32) + 1,
+                       src_i - 1)
+    return center, fscale, lo, hi
+
+
 def tap_tables_plain(sizes, canvas_size: int, out_size: int):
     """Plain twin of K1's prologue: sizes int32 [B,2] (h, w) → (lo, n,
     weights) with lo and n int32 [B,2,r] and weights float32 [B,2,r,T]
@@ -107,16 +130,7 @@ def tap_tables_plain(sizes, canvas_size: int, out_size: int):
     S, r = canvas_size, out_size
     T = tap_count(S, r)
     width = T + 5  # the window before trimming
-    src_i = torch.as_tensor(sizes, dtype=torch.int32).clamp(0, S)[..., None]
-    src = src_i.to(torch.float32)                              # [B,2,1]
-    scale = src / torch.full_like(src, float(r))
-    fscale = torch.clamp(scale, min=1.0)
-    i = torch.arange(r, dtype=torch.float32)
-    center = (i + 0.5) * scale                                 # [B,2,r]
-    lo = torch.clamp(torch.floor(center - fscale - 0.5).to(torch.int32) - 1,
-                     min=0)
-    hi = torch.minimum(torch.ceil(center + fscale - 0.5).to(torch.int32) + 1,
-                       src_i - 1)
+    center, fscale, lo, hi = _untrimmed_windows(sizes, S, r)
     n = torch.clamp(hi - lo + 1, min=0, max=width)
     k = torch.arange(width, dtype=torch.int32)
     jj = (lo[..., None] + k).to(torch.float32)
@@ -265,12 +279,14 @@ def _check_launch(name, canvas, channels, sizes, out_size, dtype, mean,
     _check_norm(mean, std)
 
 
-def _tap_scratch(B, S, r, device):
+def _tap_scratch(B, S, r, device, extra=0):
     """K1's tap tables in one allocation: (buffer, its data pointers for
     the (lo, n) pairs int32 [B,2,r,2] and for the weights float32
-    [B,2,T,r] (tap-major) after them, T)."""
+    [B,2,T,r] (tap-major) after them, T); ``extra`` int32 words more after
+    the weights (K2's work counter)."""
     T = tap_count(S, r)
-    buf = torch.empty(B * 2 * r * (2 + T), dtype=torch.int32, device=device)
+    buf = torch.empty(B * 2 * r * (2 + T) + extra, dtype=torch.int32,
+                      device=device)
     ptr = buf.data_ptr()
     return buf, ptr, ptr + B * 2 * r * 2 * 4, T
 
@@ -391,6 +407,186 @@ def preprocess_rgb_plain(canvas, sizes, *, out_size, mean=None, std=None,
     return x.to(dtype).contiguous()
 
 
+# K2's launch plan (csrc/preprocess_rgb.cu, k2_plan and k2_layout): tiles
+# of K2_ROWS output rows by J output columns: whole or half rows if they
+# leave room for K2_REG_BLOCKS blocks on an SM (what the registers allow),
+# else the widest balanced width ceil(r/n) that leaves room for
+# K2_MIN_BLOCKS; two canvas buffers if they fit as many blocks, else one;
+# threads that fill the SM's K2_SM_THREADS with those blocks.
+K2_ROWS = 16
+K2_SM_THREADS = 768      # resize threads an SM holds (80 registers each)
+K2_REG_BLOCKS = 3
+K2_MIN_BLOCKS = 2
+K2_TMP_STRIDE = 20       # floats of tmp per window byte (16 rows + pad)
+K2_SCRATCH_EXTRA = 4     # int32 words after the tap weights: the counter
+                         # that hands the resize's units to its blocks
+SMEM_PER_SM = 233472     # an H100 SM's shared memory (228 KB)
+SMEM_PER_BLOCK = 232448  # the most one block may take (227 KB)
+_SMEM_RESERVED = 1024    # the runtime's own share per block
+
+
+def _a16(x):
+    return (x + 15) // 16 * 16
+
+
+def rows_capacity(k, canvas_size, out_size):
+    """Canvas indices that k consecutive untrimmed windows span, at most
+    (``rows_capacity`` of csrc/preprocess_common.cuh, in its float32
+    operations)."""
+    smax = np.float32(canvas_size) / np.float32(out_size)
+    span = np.float32(k - 1) * smax \
+        + np.float32(2.0) * max(smax, np.float32(1.0))
+    return math.ceil(float(span)) + 6
+
+
+def _k2_window_bytes(cols, S, r):
+    return min(_a16(3 * rows_capacity(cols, S, r) + 30), 3 * S)
+
+
+def _k2_canvas_pitch(wb):
+    return wb if (wb >> 4) & 1 else wb + 16
+
+
+def _k2_hw_cap(T, cols, r):
+    """Horizontal weights a table slot holds: T taps of a tile, or the two
+    taps a column of an upscaled image has across a whole row."""
+    return max(T * cols, 2 * r)
+
+
+def _k2_smem(r, T, cols, nbuf, rows_cap, wb_cap, out_bytes):
+    """Dynamic shared memory of K2's resize block (k2_layout): the staging
+    buffer of a whole-row plan (16 output rows), tmp (20 floats a window
+    byte), the canvas buffers (rows padded so that 16 of them spread over
+    the banks), two table slots, the units handed to the block."""
+    o = _a16(K2_ROWS * r * 3 * out_bytes + 16) if cols == r else 0
+    o = _a16(o + wb_cap * K2_TMP_STRIDE * 4)
+    o = _a16(o + nbuf * rows_cap * _k2_canvas_pitch(wb_cap))
+    slot = (_a16(_k2_hw_cap(T, cols, r) * 4) + _a16(r * 8)
+            + _a16(T * K2_ROWS * 4) + _a16(K2_ROWS * 8))
+    return o + 2 * slot + 16
+
+
+def k2_plan(canvas_size, out_size, dtype=torch.bfloat16):
+    """K2's resize plan for a canvas rung and output type (the Python
+    mirror of k2_plan in csrc/preprocess_rgb.cu, which ``k2_resize_shape``
+    reports on the card): the tile's rows and columns, the column tiles per
+    row step, the canvas buffers, the window a tile stages (rows and bytes
+    per row), the dynamic shared memory per block, the threads and the
+    blocks an SM's shared memory holds."""
+    S, r = canvas_size, out_size
+    T = tap_count(S, r)
+    ob = 2 if dtype == torch.bfloat16 else 4
+    rows_cap = rows_capacity(K2_ROWS, S, r)
+
+    def smem(J, nb):
+        return _k2_smem(r, T, J, nb, rows_cap, _k2_window_bytes(J, S, r), ob)
+
+    def fits(widths, blocks):
+        return ((J, nb) for J in sorted(set(widths), reverse=True)
+                for nb in (2, 1)
+                if SMEM_PER_SM // (smem(J, nb) + _SMEM_RESERVED) >= blocks)
+    wide = fits((-(-r // n) for n in (1, 2)), K2_REG_BLOCKS)
+    any_width = fits((-(-r // n) for n in range(1, r + 1)), K2_MIN_BLOCKS)
+    plan = next(wide, None)
+    blocks = K2_REG_BLOCKS if plan else K2_MIN_BLOCKS
+    cols, nbuf = plan or next(any_width, (1, 1))
+    total = smem(cols, nbuf)
+    return dict(rows=K2_ROWS, cols=cols, ncol=-(-r // cols), nbuf=nbuf,
+                window_rows=rows_cap,
+                window_bytes=_k2_window_bytes(cols, S, r), smem=total,
+                threads=K2_SM_THREADS // blocks,
+                blocks_by_smem=SMEM_PER_SM // (total + _SMEM_RESERVED))
+
+
+def k2_tile_walk(sizes, canvas_size, out_size, cols):
+    """K2's resize tiles with work, in the kernel's order (image, row step,
+    column tile), as set_image/set_window in csrc/preprocess_rgb.cu build
+    them: dicts of the image b, output rows [i0, i0+rows) and columns
+    [j0, j0+cols), the canvas rows [ymin, ymin+nrows) and row bytes
+    [xb0, xb0+wb) that their untrimmed windows touch (before the kernel
+    caps them at the plan's window, which they never reach). An image
+    whose whole row fits the window (and its two taps a column a table
+    slot) is one tile of r columns per row step."""
+    S, r = canvas_size, out_size
+    T = tap_count(S, r)
+    wb_cap = _k2_window_bytes(cols, S, r)
+    hw_cap = _k2_hw_cap(T, cols, r)
+    _, fscale, lo, hi = _untrimmed_windows(sizes, S, r)
+    lo, hi = lo.numpy(), hi.numpy()
+    w = torch.as_tensor(sizes, dtype=torch.int32).clamp(0, S)[:, 1].numpy()
+    th = 2 * np.ceil(fscale[:, 1, 0].numpy()).astype(int)
+    for b in range(lo.shape[0]):
+        whole = cols == r or (_a16(3 * int(w[b])) <= wb_cap
+                              and th[b] * r <= hw_cap)
+        for i0 in range(0, r, K2_ROWS):
+            rows = min(K2_ROWS, r - i0)
+            ymin = int(lo[b, 0, i0])
+            nrows = max(0, int(hi[b, 0, i0 + rows - 1]) - ymin + 1)
+            for j0 in (0,) if whole else range(0, r, cols):
+                n = r if whole else min(cols, r - j0)
+                c0, c1 = int(lo[b, 1, j0]), int(hi[b, 1, j0 + n - 1])
+                xb0 = (3 * c0) & ~15
+                wb = 0 if c1 < c0 else _a16(3 * (c1 + 1)) - xb0
+                yield dict(b=b, i0=i0, rows=rows, j0=j0, cols=n, ymin=ymin,
+                           nrows=nrows, xb0=xb0, wb=wb)
+
+
+def k2_tile_dest(tile, out_size, fx, fy):
+    """(output rows, output columns) that a tile's rows and columns land
+    on, in tile order: the mirrored ones when the image flips."""
+    r = out_size
+    rows = torch.arange(tile["i0"], tile["i0"] + tile["rows"])
+    cols = torch.arange(tile["j0"], tile["j0"] + tile["cols"])
+    return (r - 1 - rows if fx else rows), (r - 1 - cols if fy else cols)
+
+
+def k2_tiles_plain(canvas, sizes, *, out_size, mean=None, std=None,
+                   flips=None, dtype=torch.float32, cols=None):
+    """K2's output computed tile by tile in the kernel's pass order (the
+    plain mirror of its walk, for the CPU): per tile the vertical pass over
+    the staged window's bytes, then the horizontal pass over its columns,
+    each tap in order, then /255, clip, the norm and the flips placed by
+    the tile's destination. Same contract as ``preprocess_rgb_plain``;
+    ``cols`` imposes a tile width (default: the plan's)."""
+    _check_norm(mean, std)
+    B, S = canvas.shape[0], canvas.shape[1]
+    r = out_size
+    if cols is None:
+        cols = k2_plan(S, r, dtype)["cols"]
+    lo, n, w = tap_tables_plain(sizes.cpu(), S, r)  # [B,2,r], [B,2,r,T]
+    flips = _flip_mask_or_none(flips, B)
+    x = canvas.cpu().to(torch.float32).reshape(B, S, 3 * S)
+    out = torch.zeros((B, r, r, 3), dtype=torch.float32)
+    rgb = torch.arange(3)
+    for t in k2_tile_walk(sizes.cpu(), S, r, cols):
+        b, i0, j0 = t["b"], t["i0"], t["j0"]
+        rs, cs = slice(i0, i0 + t["rows"]), slice(j0, j0 + t["cols"])
+        acc = torch.zeros((t["rows"], t["cols"], 3))
+        if t["nrows"] and t["wb"]:
+            win = x[b, t["ymin"]:t["ymin"] + t["nrows"],
+                    t["xb0"]:t["xb0"] + t["wb"]]
+            tmp = torch.zeros((t["rows"], t["wb"]))
+            for k in range(w.shape[-1]):  # vertical taps, in order
+                on = k < n[b, 0, rs]
+                y = (lo[b, 0, rs] - t["ymin"] + k).clamp(0, t["nrows"] - 1)
+                tmp = tmp + torch.where(on[:, None],
+                                        w[b, 0, rs, k, None] * win[y], 0.0)
+            for k in range(w.shape[-1]):  # horizontal taps, in order
+                on = k < n[b, 1, cs]
+                px = (3 * (lo[b, 1, cs] + k) - t["xb0"])[:, None] + rgb
+                vals = tmp[:, px.clamp(0, t["wb"] - 1)]
+                acc = acc + torch.where(on[None, :, None],
+                                        w[b, 1, cs, k, None] * vals, 0.0)
+        v = torch.clamp(acc * (1.0 / 255.0), 0.0, 1.0)
+        if mean is not None:
+            v = (v - torch.tensor(mean)) / torch.tensor(std)
+        fx = flips is not None and bool(flips[b, 0])
+        fy = flips is not None and bool(flips[b, 1])
+        orows, ocols = k2_tile_dest(t, r, fx, fy)
+        out[b, orows[:, None], ocols[None, :]] = v
+    return out.to(dtype).to(canvas.device)
+
+
 _k2 = None  # (ctypes library, compiler output), built at first launch
 
 
@@ -402,30 +598,50 @@ def build_k2():
         so, log = build_shared_library(
             "k2_preprocess_rgb", [_K2_SRC], _nvcc_command(),
             headers=[_COMMON_H])
-        lib = ctypes.CDLL(so)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        f32p = ctypes.POINTER(ctypes.c_float)
-        lib.k2_preprocess_rgb.restype = i32
-        lib.k2_preprocess_rgb.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32p, f32p, ptr,
-            ptr, i32, ptr]
-        lib.k2_resize_shape.restype = i32
-        lib.k2_resize_shape.argtypes = [i32, i32, i32, i32, i32,
-                                        ctypes.POINTER(ctypes.c_int)]
-        _k2 = (lib, log)
+        _k2 = (_bind_k2(ctypes.CDLL(so)), log)
     return _k2
 
 
+def _bind_k2(lib):
+    """Argument types of K2's C entry points (a library built from the
+    current source)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.k2_preprocess_rgb.restype = i32
+    lib.k2_preprocess_rgb.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32p, f32p, ptr, ptr,
+        i32, ptr]
+    lib.k2_resize_shape.restype = i32
+    lib.k2_resize_shape.argtypes = [i32] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
 def k2_resize_shape(B, canvas_size, out_size, dtype=torch.bfloat16):
-    """K2's resize launch shape, as ``k1_resize_shape`` gives K1's."""
-    lib, _ = build_k2()
-    shape = (ctypes.c_int * 5)()
+    """K2's resize plan and launch shape on the current card: a dict of
+    the dynamic shared memory per block (bytes), the blocks resident per
+    SM, the grid, the threads per block, the tile's rows and columns, the
+    canvas buffers and the window's rows and bytes per row."""
+    return _k2_shape(build_k2()[0], B, canvas_size, out_size, dtype)
+
+
+def _k2_shape(lib, B, canvas_size, out_size, dtype):
+    """``k2_resize_shape`` of a K2 library bound by ``_bind_k2``."""
+    shape = (ctypes.c_int * 9)()
     err = lib.k2_resize_shape(B, canvas_size, out_size,
                               tap_count(canvas_size, out_size),
                               int(dtype == torch.bfloat16), shape)
     if err != 0:
         raise RuntimeError(f"K2 resize shape failed with cudaError_t {err}")
-    return tuple(shape)
+    return dict(zip(("smem", "per_sm", "grid", "threads", "rows", "cols",
+                     "nbuf", "window_rows", "window_bytes"), shape))
+
+
+@functools.lru_cache(maxsize=16)
+def _c_norm(mean, std):
+    """The 3-float ctypes arrays of a (mean, std) pair, built once."""
+    on = mean is not None
+    return ((ctypes.c_float * 3)(*(mean if on else (0.0,) * 3)),
+            (ctypes.c_float * 3)(*(std if on else (1.0,) * 3)))
 
 
 def preprocess_rgb_cuda(canvas, sizes, *, out_size, mean=None, std=None,
@@ -438,21 +654,25 @@ def preprocess_rgb_cuda(canvas, sizes, *, out_size, mean=None, std=None,
     in ``preprocess_rgb_cuda.launches``."""
     _check_launch("K2", canvas, (3,), sizes, out_size, dtype, mean, std)
     B, S = canvas.shape[0], canvas.shape[1]
-    flips = _flip_mask_or_none(flips, B)
     if flips is not None:
+        if tuple(flips.shape) != (B, 2):
+            raise ValueError(f"flips must be [{B},2] (got "
+                             f"{tuple(flips.shape)})")
         if flips.device != canvas.device:
             raise ValueError(f"K2 needs flips on {canvas.device} (got "
                              f"{flips.device})")
-        flips = flips.contiguous()
+        if flips.dtype != torch.uint8 or not flips.is_contiguous():
+            flips = flips.to(torch.uint8).contiguous()
     out = torch.empty((B, out_size, out_size, 3), dtype=dtype,
                       device=canvas.device)
     if B == 0:
         return out
     lib, _ = build_k2()
-    scratch, lo_n, wt, T = _tap_scratch(B, S, out_size, canvas.device)
+    scratch, lo_n, wt, T = _tap_scratch(B, S, out_size, canvas.device,
+                                        extra=K2_SCRATCH_EXTRA)
     has_norm = mean is not None
-    c_mean = (ctypes.c_float * 3)(*(mean if has_norm else (0.0,) * 3))
-    c_std = (ctypes.c_float * 3)(*(std if has_norm else (1.0,) * 3))
+    c_mean, c_std = _c_norm(tuple(mean) if has_norm else None,
+                            tuple(std) if has_norm else None)
     with torch.cuda.device(canvas.device):
         err = lib.k2_preprocess_rgb(
             canvas.data_ptr(), sizes.data_ptr(),
