@@ -38,7 +38,12 @@ Phases (any failure exits non-zero and prints no result):
      batches phase 4's loader forms from roi_sides images, each on the
      rung of its largest side; the 64 and 128 rungs, which no batch
      reaches, from their own pools), after holding it there to its plain
-     version as above.
+     version as above. Then K2 at the shapes its serving callers give it,
+     every rung: B=256 without flips with the norm (RUN --type img in bf16;
+     VAL and the int8 engine in f32) and B=108 f32 without the norm at
+     r=299 and r=224 (CALC_IMG_NORM), held the same way against its plain
+     version, the card's plan at r=224 equal to k2_plan's, and timed at
+     B=256 bf16 and at B=108 f32 r=224.
   2c. K3 (csrc/qconv_s8.cu), built beside K1 and K2, is held against its
      plain version (ops/qconv.qconv_plain: a float64 convolution of the
      int8 values, exact, then the f32 epilogue) on the card at every
@@ -98,7 +103,34 @@ Phases (any failure exits non-zero and prints no result):
      port's avg_pool backward in channels_last on the card within 1e-5 of
      a float64 CPU reference (PyTorch's own channels_last CUDA kernel,
      which it avoids, is printed beside it).
-  5. prints the kernels line and, last, the device line.
+  5. the verbs that serve a trained model, full-width inception_v3 @299:
+     5a. ``RUN --type img --batch 256`` (bf16) of phase 3's checkpoint on
+     1,024 PNGs written under 4 subfolders (roi_sides' sides, every third
+     one gray): every image scored once in img_results.json, one
+     ``{INPUT_SUBDIRS}img.json`` per subfolder, ``--summary`` src_type
+     img; K2 launches = engine dispatches, K1 none; fp32 on the card (TF32
+     off) against the CPU path on 16 images (scores within 1e-5); the
+     warm img/s. 5b. the same with ``--precision int8``: K3 launches = 94
+     x the int8 dispatches, scores within 2e-2 of 5a's fp32 ones (argmax
+     agreement printed), the warm img/s beside bf16's. 5c. a reference
+     Lightning .ptl of phase 3's weights (model.-prefixed torchvision
+     keys, num_batches_tracked, an aux head, hparams an AttributeDict of
+     a throwaway module) served by RUN fp32 on phase 3's two smallest
+     bins: scores within 1e-6 of the port's own checkpoint's; a .ptl
+     holding a class outside the unpickler's allowlist refused. 5d.
+     ``VAL --batch 128`` of phase 4's .ptl on phase 4's dataset: every
+     image listed, K2 launches = batches, the warm img/s; fp32 on the card
+     against the CPU path on 32 images (scores within 1e-5, val_loss
+     within 1e-5 relative). 5e. ``CALC_IMG_NORM`` of phase 4's dataset at
+     --resize 299 and 224 (K2 once per batch of 108); the card against the
+     CPU path on 64 images within 1e-5. 5f. ``PORT_WEIGHTS`` of phase 4's
+     checkpoint to a .pth and on to an .npz, bitwise the checkpoint; the
+     trunk that TRAIN --weights' loader returns from the .pth bitwise the
+     file with fresh heads; ``TRAIN --weights --emax 1`` to finite losses.
+  6. prints the kernels line (K2's launches keep counting TRAIN's calls;
+     its launches_by_path count each verb's, its run_img row is K2 at B=256
+     bf16 without flips on the rung most 5a batches land on) and, last,
+     the device line.
 
 Weights and bins are made from fixed seeds; nothing is downloaded.
 """
@@ -151,6 +183,13 @@ K3_SHAPES = (
     ("Mixed_6b/branch7x7_2", 128, 128, 1, 7, 1, ((0, 0), (3, 3)), 17),
     ("Mixed_7b/branch3x3dbl_2", 448, 384, 3, 3, 1, ((1, 1), (1, 1)), 8))
 K3_MAIN = "Conv2d_4a_3x3"  # the kernels line's row: the most operations
+R_224 = 224                 # CALC_IMG_NORM --resize 224
+RUN_BATCH = 256             # RUN --type img's batch (phase 5a)
+NORM_BATCH = 108            # CALC_IMG_NORM's default batch
+IMG_DIRS = 4                # phase 5a's image tree: subfolders
+IMG_COUNT = 1024            # ... and PNGs in all
+TOL_PTL = 1e-6              # .ptl vs the port's checkpoint, same weights
+TOL_VAL_LOSS = 1e-5         # card fp32 vs CPU val_loss, relative
 
 
 def card_line():
@@ -621,6 +660,85 @@ def check_k2(rng):
               "({bound_by})".format(**mrow), flush=True)
         del c, s, f
     return rows, mix_rows, max_err
+
+
+def check_k2_serving(side_rng):
+    """Phase 2, K2 at the shapes its serving callers give it: RUN --type
+    img and VAL (B=256, no flips, norm; bf16 as RUN serves, f32 as VAL and
+    the int8 engine preprocess) and CALC_IMG_NORM (B=108, f32, no norm, at
+    r=299 and r=224), every rung, held against the plain version (f32
+    within TOL_F32_NORM / TOL_F32, bf16 equal to the f32 result rounded
+    once); the card's plan at r=224 equal to k2_plan's. Times K2 at each
+    rung for B=256 bf16 norm (RUN img) and B=108 f32 r=224
+    (CALC_IMG_NORM). Returns ({S: RUN-img row}, {S: r=224 row}, max
+    f32 error)."""
+    import torch
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        k2_plan, k2_resize_shape, preprocess_rgb_cuda, preprocess_rgb_plain)
+    dev = torch.device("cuda")
+    run_rows, norm_rows, max_err = {}, {}, 0.0
+    for S in LADDER:
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("f32", torch.float32)):
+            sh = k2_resize_shape(NORM_BATCH, S, R_224, dtype)
+            plan = k2_plan(S, R_224, dtype)
+            differ = {k: (sh[k], plan[k]) for k in K2_PLAN_KEYS
+                      if sh[k] != plan[k]}
+            if differ:
+                raise AssertionError(
+                    f"K2 plan S={S} r={R_224} {name}: the card's plan and "
+                    f"k2_plan differ (card, mirror): {differ}")
+        for B, r, norm, what in ((RUN_BATCH, R, True, "RUN img / VAL"),
+                                 (NORM_BATCH, R_224, False,
+                                  "CALC_IMG_NORM 224"),
+                                 (NORM_BATCH, R, False,
+                                  "CALC_IMG_NORM 299")):
+            canvas, sizes = make_rgb_canvas(B, S, side_rng)
+            c = torch.from_numpy(canvas).to(dev)
+            s = torch.from_numpy(sizes).to(dev)
+            mean, std = (RGB_MEAN, RGB_STD) if norm else (None, None)
+            tol = TOL_F32_NORM if norm else TOL_F32
+            ref = preprocess_rgb_plain(c, s, out_size=r, mean=mean, std=std)
+            got = preprocess_rgb_cuda(c, s, out_size=r, mean=mean, std=std,
+                                      dtype=torch.float32)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"K2 f32 S={S} B={B} r={r} {what}: "
+                                     f"max|err| {err} > {tol}")
+            max_err = max(max_err, err) if norm else max_err
+            if norm:
+                bf = preprocess_rgb_cuda(c, s, out_size=r, mean=mean,
+                                         std=std, dtype=torch.bfloat16)
+                if not torch.equal(bf, got.to(torch.bfloat16)):
+                    raise AssertionError(
+                        f"K2 bf16 S={S} B={B} {what}: differs from the "
+                        "f32 result rounded to bf16")
+            dtype = torch.bfloat16 if norm else torch.float32
+            kernel = (lambda c=c, s=s, r=r, mean=mean, std=std, dtype=dtype:
+                      preprocess_rgb_cuda(c, s, out_size=r, mean=mean,
+                                          std=std, dtype=dtype))
+            if r == R_224 or norm:
+                row = dict(S=S, B=B, r=r, ms=cuda_ms(kernel, 10),
+                           device_ms=cuda_ms(kernel, 10, queued=True))
+                row["bound_ms"], row["bound_by"] = k1_bound(
+                    sizes, S, r, 2 if norm else 4, channels=3)
+                if norm:
+                    row["plain_ms"] = cuda_ms(lambda: preprocess_rgb_plain(
+                        c, s, out_size=r, mean=mean, std=std,
+                        dtype=torch.bfloat16), 2)
+                    run_rows[S] = row
+                else:
+                    norm_rows[S] = row
+                print("K2 time S={S} B={B} r={r} {what}: kernel {ms:.4f} ms "
+                      "(device alone {device_ms:.4f} ms), bound {bound_ms:.4f}"
+                      " ms ({bound_by})".format(what=what, **row), flush=True)
+            del c, s, ref, got
+        print(f"K2 check S={S} serving shapes: ok (B={RUN_BATCH} no flips "
+              f"bf16/f32 with the norm; B={NORM_BATCH} f32 no norm at r="
+              f"{R} and {R_224}; the card's r={R_224} plan is k2_plan's)",
+              flush=True)
+    return run_rows, norm_rows, max_err
 
 
 def inception_conv_shapes():
@@ -1149,7 +1267,7 @@ def train_path(work, bins_dir, card):
           f"card {worst[1]:.3g}, CPU f32 {worst[2]:.3g}; largest card "
           f"distance {max(r[1] for r in rows):.3g})", flush=True)
     return dict(k2_launches=k2, img_s=img_s, warm_img_s=warm_img_s,
-                rungs=rungs, wall_s=wall_s, steps=steps)
+                rungs=rungs, wall_s=wall_s, steps=steps, ds=ds, ptl=ptl)
 
 
 def ptxas_report(log):
@@ -1261,7 +1379,7 @@ def union_us(spans):
     return total
 
 
-def profile_breakdown(run, card):
+def profile_breakdown(run, card, what="warm RUN"):
     """The warm RUN once more under torch.profiler: the card's busy share
     (union of kernel spans over the wall time) and the kernels that take
     it. Informational: a profiler that records no device events is said
@@ -1283,24 +1401,28 @@ def profile_breakdown(run, card):
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # K1 and K2 share the taps kernel; a RUN launches one of the two
+    k2 = sum(v for k, v in by_name.items() if "preprocess_rgb" in k)
     k1 = sum(v for k, v in by_name.items() if "preprocess_gray" in k)
     k3 = [v for k, v in by_name.items() if "qconv_s8" in k]
     k1_parts = {}
     for e in kern:
-        for part in ("preprocess_gray_taps", "preprocess_gray_resize"):
+        for part in ("preprocess_gray_taps", "preprocess_gray_resize",
+                     "preprocess_rgb"):
             if part in e.name:
                 k1_parts.setdefault(part, []).append(
                     e.time_range.elapsed_us())
-    print(f"profile (warm RUN under torch.profiler, wall {wall_s * 1e3:.1f} "
+    print(f"profile ({what} under torch.profiler, wall {wall_s * 1e3:.1f} "
           f"ms): kernels busy {busy / 1e3:.1f} ms = "
           f"{100 * busy / (wall_s * 1e6):.1f}% of wall (idle "
           f"{100 - 100 * busy / (wall_s * 1e6):.1f}%), memcpy "
-          f"{copy_us / 1e3:.1f} ms, {len(kern)} kernel launches, K1 "
-          f"{k1 / 1e3:.2f} ms" + (
+          f"{copy_us / 1e3:.1f} ms, {len(kern)} kernel launches, "
+          + (f"K2 (taps + resize) {(k1 + k2) / 1e3:.2f} ms" if k2
+             else f"K1 {k1 / 1e3:.2f} ms") + (
               f", K3 {sum(k3) / 1e3:.2f} ms = "
               f"{100 * sum(k3) / busy:.1f}% of the busy time" if k3 else "")
           + f"; on {card}", flush=True)
-    print("profile K1 per launch (us): " + "; ".join(
+    print(f"profile {'K2' if k2 else 'K1'} per launch (us): " + "; ".join(
         f"{k} {np.mean(v):.2f} mean, {np.min(v):.2f}..{np.max(v):.2f} over "
         f"{len(v)} launches" for k, v in sorted(k1_parts.items())),
         flush=True)
@@ -1492,6 +1614,493 @@ def int8_path(work, run, card):
     return k3, dict(img_s=img_s, cold_s=cold_s, warm_s=warm_s, d32=d32,
                     d16=d16, agree=agree, total=total, cpu_err=err)
 
+def write_image_tree(root, rng):
+    """Phase 5a's RUN --type img input: IMG_COUNT PNGs with roi_sides'
+    sides under IMG_DIRS subfolders, every third one gray (mode L), the
+    rest RGB. Returns {path: (h, w)}."""
+    from PIL import Image
+    sides = {}
+    for i, (h, w) in enumerate(roi_sides(IMG_COUNT, rng)):
+        d = os.path.join(root, f"sub{i % IMG_DIRS}")
+        os.makedirs(d, exist_ok=True)
+        yy, xx = np.mgrid[0:h, 0:w]
+        blob = 200 - 120 * np.exp(-(((yy - h / 2) / (h / 4)) ** 2
+                                    + ((xx - w / 2) / (w / 4)) ** 2))
+        if i % 3 == 1:
+            img = Image.fromarray(np.clip(blob + rng.normal(0, 12, (h, w)),
+                                          0, 255).astype(np.uint8), "L")
+        else:
+            tint = np.array([1.0, 0.8, 0.6])
+            img = Image.fromarray(np.clip(
+                blob[..., None] * tint + rng.normal(0, 12, (h, w, 3)), 0,
+                255).astype(np.uint8))
+        path = os.path.join(d, f"img{i:04d}.png")
+        img.save(path)
+        sides[path] = (int(h), int(w))
+    return sides
+
+
+def batch_rungs(paths, sides, B):
+    """{rung: batches} of a HostLoader over ``paths`` (in its order) at
+    batch B: each batch's canvas is the rung of its largest side."""
+    from ifcb_classifier_tpu_torch.data.pipeline import ladder_size
+    rungs = {}
+    for k in range(0, len(paths), B):
+        S = ladder_size(max(max(sides[p]) for p in paths[k:k + B]))
+        rungs[S] = rungs.get(S, 0) + 1
+    return dict(sorted(rungs.items()))
+
+
+def img_run(engine, src, outdir, extra=()):
+    """RUN --type img of ``engine`` over ``src`` into ``outdir`` (``extra``:
+    global flags); returns its wall seconds."""
+    import torch
+    from ifcb_classifier_tpu_torch.cli import argparse_nn, main
+    from ifcb_classifier_tpu_torch.utils.config import (
+        add_runtime_params, proc_outdir)
+    args = argparse_nn().parse_args(
+        ["--batch", str(RUN_BATCH), *extra, "RUN", src, "m", "smoke",
+         "--type", "img", "--outdir", outdir])
+    add_runtime_params(args)
+    proc_outdir(args, model_id_for_run=engine.model_id)
+    t0 = time.perf_counter()
+    main(args, engine=engine)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def read_img_scores(path):
+    with open(path) as f:
+        res = json.load(f)
+    return res["input_images"], np.asarray(res["output_scores"], np.float64)
+
+
+def serving_path(work, run, train, card):
+    """Phase 5: the verbs that serve a trained model (5a RUN --type img,
+    5b its int8 tier, 5c a reference Lightning .ptl, 5d VAL, 5e
+    CALC_IMG_NORM, 5f PORT_WEIGHTS and TRAIN --weights). Returns the K2
+    launches by path and the phase's numbers."""
+    import torch
+    from ifcb_classifier_tpu_torch.cli import main_cli
+    from ifcb_classifier_tpu_torch.data.datasets import list_image_paths
+    from ifcb_classifier_tpu_torch.data.pipeline import HostLoader, prefetch
+    from ifcb_classifier_tpu_torch.infer.runner import InferenceEngine
+    from ifcb_classifier_tpu_torch.ops.preprocess import (
+        preprocess_gray_cuda, preprocess_rgb_cuda)
+    from ifcb_classifier_tpu_torch.ops.qconv import qconv_cuda
+    from ifcb_classifier_tpu_torch.utils.config import resolve_dtype
+
+    t_phase = time.perf_counter()
+    ckpt = run["ckpt"]
+    imgs = os.path.join(work, "imgs")
+    t0 = time.perf_counter()
+    sides = write_image_tree(imgs, np.random.default_rng(5))
+    paths = list_image_paths(imgs)
+    rungs = batch_rungs(paths, sides, RUN_BATCH)
+    print(f"RUN img tree: {len(paths)} PNGs ({IMG_COUNT // 3} gray) in "
+          f"{IMG_DIRS} subfolders written in {time.perf_counter() - t0:.1f} "
+          f"s; batches of {RUN_BATCH} by canvas rung {rungs}", flush=True)
+    by_path = dict(train=train["k2_launches"])
+
+    def counted(fn):
+        preprocess_gray_cuda.launches = 0
+        preprocess_rgb_cuda.launches = 0
+        qconv_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, (
+            preprocess_rgb_cuda.launches, preprocess_gray_cuda.launches,
+            qconv_cuda.launches)
+
+    # 5a. RUN --type img, bf16
+    out = os.path.join(work, "run_img")
+    engine, cold_s, (k2, k1, _) = counted(lambda: main_cli(
+        ["--batch", str(RUN_BATCH), "RUN", imgs, ckpt, "smoke", "--type",
+         "img", "--outdir", out, "--outfile", "img_results.json",
+         "--outfile", "{INPUT_SUBDIRS}img.json", "--summary",
+         "summary.json"]))
+    if not (k2 == engine.dispatches > 0 and k1 == 0):
+        raise AssertionError(f"RUN img: K2 launched {k2} times, K1 {k1}, "
+                             f"for {engine.dispatches} dispatches")
+    by_path["run_img"] = k2
+    listed, bf16 = read_img_scores(os.path.join(out, "img_results.json"))
+    if sorted(listed) != paths or len(set(listed)) != len(paths) \
+            or bf16.shape != (len(paths), N_CLASSES) \
+            or not np.isfinite(bf16).all():
+        raise AssertionError(f"img_results.json: {len(listed)} images, "
+                             f"scores {bf16.shape}")
+    n_sub = 0
+    for k in range(IMG_DIRS):
+        names, sc = read_img_scores(os.path.join(out, f"sub{k}img.json"))
+        want = sorted(os.path.basename(p) for p in paths
+                      if os.path.dirname(p).endswith(f"sub{k}"))
+        if sorted(names) != want or sc.shape != (len(want), N_CLASSES):
+            raise AssertionError(f"sub{k}img.json: {len(names)} images")
+        n_sub += len(names)
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    if not (summary["src_type"] == "img" and summary["n_images"]
+            == summary["n_rois"] == len(paths) == n_sub):
+        raise AssertionError(f"RUN img summary: {summary['src_type']}, "
+                             f"{summary['n_images']} images")
+    warm_s = img_run(engine, imgs, os.path.join(work, "run_img_warm"))
+    img_s = len(paths) / warm_s
+    # where the time goes: the loader alone (decode and pack into pinned
+    # canvases, no device work), then the warm RUN under the profiler
+    t0 = time.perf_counter()
+    for _ in prefetch(iter(HostLoader(paths, batch_size=RUN_BATCH,
+                                      pin_memory=engine.pin_memory))):
+        pass
+    loader_s = time.perf_counter() - t0
+    print(f"RUN img loader alone (decode + pack {RUN_BATCH}-image pinned "
+          f"canvases, no device work): {loader_s:.3f} s = "
+          f"{len(paths) / loader_s:.1f} img/s", flush=True)
+    profile_breakdown(lambda: img_run(engine, imgs, os.path.join(
+        work, "run_img_prof")), card, "warm RUN --type img")
+    print(f"RUN --type img (inception_v3 @299 bf16, batch {RUN_BATCH}): "
+          f"{len(paths)} images, each scored once, {IMG_DIRS} per-subfolder "
+          f"files, summary src_type img; K2 launches {k2} = engine "
+          f"dispatches, K1 none; cold {cold_s:.2f} s incl. engine build, "
+          f"warm {warm_s:.3f} s = {img_s:.1f} img/s (decode, pack, "
+          f"classify, write) on {card}", flush=True)
+    # fp32 (TF32 off) on the card for every image, and the CPU path on 16
+    e32 = InferenceEngine(ckpt, batch_size=RUN_BATCH,
+                          dtype=resolve_dtype("fp32", "cuda"))
+    p32, order = e32.predict_loader(HostLoader(
+        paths, batch_size=RUN_BATCH, pin_memory=e32.pin_memory))
+    if order != listed:
+        raise AssertionError("fp32 engine: another image order")
+    ecpu = InferenceEngine(ckpt, batch_size=16, device="cpu")
+    pcpu, _ = ecpu.predict_loader(HostLoader(paths[:16], batch_size=16))
+    cpu_err = float(np.abs(p32[:16] - pcpu).max())
+    if not cpu_err <= TOL_CPU_SCORES:
+        raise AssertionError(f"RUN img card fp32 vs CPU: {cpu_err}")
+    d16 = float(np.abs(bf16 - p32).max())
+    print(f"RUN img card fp32 (TF32 off) vs CPU path (16 images): max |d "
+          f"score| {cpu_err:.4g} (tolerance {TOL_CPU_SCORES}); bf16 vs fp32 "
+          f"max |d score| {d16:.4g}", flush=True)
+
+    # 5b. the same with --precision int8
+    out8 = os.path.join(work, "run_img_int8")
+    e8, cold8_s, (k2, k1, k3) = counted(lambda: main_cli(
+        ["--batch", str(RUN_BATCH), "--precision", "int8", "RUN", imgs, ckpt,
+         "smoke", "--type", "img", "--outdir", out8]))
+    n8, n = e8.int8_dispatches, e8.dispatches
+    if not (n8 == n == k2 > 0 and k3 == K3_CONVS * n8 and k1 == 0):
+        raise AssertionError(f"RUN img int8: K3 {k3}, K2 {k2}, K1 {k1} for "
+                             f"{n8} int8 of {n} dispatches")
+    by_path["run_img_int8"] = k2
+    listed8, s8 = read_img_scores(os.path.join(out8, "img_results.json"))
+    d8 = float(np.abs(s8 - p32).max()) if listed8 == listed else np.inf
+    agree = int((s8.argmax(1) == p32.argmax(1)).sum())
+    if not d8 < TOL_INT8_FP32:
+        raise AssertionError(f"RUN img int8 vs fp32: max |d p| {d8}")
+    warm8_s = img_run(e8, imgs, os.path.join(work, "run_img_int8_warm"),
+                      ("--precision", "int8"))
+    img8_s = len(paths) / warm8_s
+    print(f"RUN --type img --precision int8: K3 launches {k3} = {K3_CONVS} "
+          f"x {n8} int8 dispatches (all {n}), K2 {k2}; int8 vs fp32 max |d "
+          f"score| {d8:.4g} (gate {TOL_INT8_FP32}), argmax agreement "
+          f"{agree}/{len(paths)}; warm {img8_s:.1f} img/s int8 against "
+          f"{img_s:.1f} bf16 on {card}", flush=True)
+
+    # 5c. a reference-format Lightning .ptl of phase 3's weights
+    ptl_err, two = reference_ptl_run(work, run)
+    print(f"reference Lightning .ptl (model.-prefixed torchvision keys, "
+          f"num_batches_tracked, AuxLogits, AttributeDict hparams): RUN fp32 "
+          f"on {two} ROIs equal to the port's own checkpoint of the same "
+          f"weights, max |d score| {ptl_err:.3g} (tolerance {TOL_PTL}); a "
+          "class outside the allowlist and a REDUCE through "
+          "torch.storage._load_from_bytes refused", flush=True)
+
+    # 5d. VAL of phase 4's TRAIN output on its dataset
+    ds, ptl = train["ds"], train["ptl"]
+    val = val_path(work, ds, ptl, counted, card)
+    by_path["val"] = val["k2"]
+
+    # 5e. CALC_IMG_NORM at --resize 299 and 224
+    norm = calc_img_norm_path(work, ds, counted, card)
+    by_path["calc_img_norm"] = norm["k2"]
+
+    # 5f. PORT_WEIGHTS round trip and TRAIN --weights
+    weights_path(work, ds, ptl, counted, card)
+    print(f"phase 5 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return by_path, dict(img_s=img_s, img8_s=img8_s, d8=d8, agree=agree,
+                         loader_img_s=len(paths) / loader_s,
+                         n_img=len(paths), rungs=rungs, cpu_err=cpu_err,
+                         ptl_err=ptl_err, val_img_s=val["img_s"],
+                         cold_s=cold_s)
+
+
+def reference_ptl_run(work, run):
+    """5c. Phase 3's weights as the reference's Lightning writes them
+    (tests/test_resume_and_port.py:591-639 builds the same): the state dict
+    under ``model.``-prefixed torchvision keys with num_batches_tracked
+    and an aux head, hparams an AttributeDict of a module that is gone at
+    load time. RUN fp32 of it on phase 3's two smallest bins against RUN
+    fp32 of the port's own checkpoint; a .ptl with a class outside the
+    allowlist, and one whose hparams REDUCE through
+    torch.storage._load_from_bytes (an unrestricted torch.load), must be
+    refused, the latter's payload never run. Returns (max |d score|,
+    ROIs)."""
+    import io
+    import pickle
+    import types
+
+    import torch
+    from ifcb_classifier_tpu_torch.cli import main_cli
+    from ifcb_classifier_tpu_torch.models import get_namebrand_model
+    from ifcb_classifier_tpu_torch.models.torch_port import params_from_jax
+    from ifcb_classifier_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                            load_hparams)
+    params, stats, hp = load_checkpoint(run["ckpt"])
+    sd = params_from_jax(params, stats)
+    g = torch.Generator().manual_seed(7)
+    aux = get_namebrand_model("inception_v3", N_CLASSES, train=True)
+    for k, v in aux.state_dict().items():
+        if k.startswith("AuxLogits."):
+            sd[k] = 0.05 * torch.randn(v.shape, generator=g)
+    for k in [k for k in sd if k.endswith("bn.running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = \
+            torch.tensor(1234)
+    names = ("pytorch_lightning", "pytorch_lightning.utilities",
+             "pytorch_lightning.utilities.parsing")
+    mods = {n: types.ModuleType(n) for n in names}
+
+    class AttributeDict(dict):
+        pass
+
+    AttributeDict.__module__ = names[-1]
+    AttributeDict.__qualname__ = "AttributeDict"
+    mods[names[-1]].AttributeDict = AttributeDict
+    payload = types.ModuleType("ptl_payload")
+
+    class Payload:  # of a module the allowlist does not name
+        pass
+
+    Payload.__module__ = payload.__name__
+    Payload.__qualname__ = "Payload"
+    payload.Payload = Payload
+    mods[payload.__name__] = payload
+    marker = os.path.join(work, "payload_ran")
+
+    class Inner:  # runs only if the unpickle is unrestricted
+        def __reduce__(self):
+            return os.mkdir, (marker,)
+
+    inner = io.BytesIO()
+    torch.save(Inner(), inner)
+
+    class Outer:  # an unrestricted torch.load of Inner's bytes
+        def __reduce__(self):
+            return torch.storage._load_from_bytes, (inner.getvalue(),)
+
+    ptl = os.path.join(work, "reference.ptl")
+    evil = os.path.join(work, "evil.ptl")
+    evil_bytes = os.path.join(work, "evil_bytes.ptl")
+    sys.modules.update(mods)
+    try:
+        torch.save({"state_dict": {"model." + k: v for k, v in sd.items()},
+                    "hyper_parameters": AttributeDict(hp), "epoch": 9}, ptl)
+        torch.save({"state_dict": {}, "hyper_parameters": Payload()}, evil)
+    finally:
+        for n in mods:
+            sys.modules.pop(n, None)
+    torch.save({"state_dict": {}, "hyper_parameters": Outer()}, evil_bytes,
+               pickle_protocol=4)
+    for path in (evil, evil_bytes):
+        for load in (load_checkpoint, load_hparams):
+            try:
+                load(path)
+            except pickle.UnpicklingError as e:
+                if "not allowlisted" not in str(e):
+                    raise
+                continue
+            raise AssertionError(f"{load.__name__} read {path}, which "
+                                 "names a global outside the allowlist")
+    if os.path.exists(marker):
+        raise AssertionError("a refused .ptl ran its payload")
+    if load_hparams(ptl)["model_id"] != hp["model_id"]:
+        raise AssertionError("load_hparams of the reference .ptl")
+    lst = os.path.join(work, "two_bins.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(os.path.join(run["bins_dir"], pid)
+                          for pid in run["pids"][-2:]) + "\n")
+    scores = []
+    for tag, path in (("ptl", ptl), ("own", run["ckpt"])):
+        out = os.path.join(work, "ptl_run_" + tag)
+        main_cli(["--batch", "256", "--precision", "fp32", "RUN", lst, path,
+                  "smoke", "--outdir", out, "--outfile",
+                  "{BIN_ID}_class.json"])
+        scores.append(np.concatenate([read_scores(out, pid)[0]
+                                      for pid in run["pids"][-2:]]))
+    err = float(np.abs(scores[0] - scores[1]).max())
+    if not err <= TOL_PTL:
+        raise AssertionError(f".ptl vs own checkpoint: max |d score| {err}")
+    return err, len(scores[0])
+
+
+def subset_tree(src, dst, per_class):
+    """``per_class`` images of each class folder of ``src``, linked under
+    ``dst``. Returns (dst, the number of images)."""
+    n = 0
+    for cls in sorted(os.listdir(src)):
+        os.makedirs(os.path.join(dst, cls))
+        for name in sorted(os.listdir(os.path.join(src, cls)))[:per_class]:
+            os.symlink(os.path.join(src, cls, name),
+                       os.path.join(dst, cls, name))
+            n += 1
+    return dst, n
+
+
+def parsed(argv):
+    """The CLI's namespace for ``argv``, with its run-time fields and
+    outdir filled in as main_cli fills them."""
+    from ifcb_classifier_tpu_torch.cli import argparse_nn
+    from ifcb_classifier_tpu_torch.utils.config import (
+        add_runtime_params, proc_outdir)
+    args = argparse_nn().parse_args(argv)
+    add_runtime_params(args)
+    return proc_outdir(args)
+
+
+def val_path(work, ds, ptl, counted, card):
+    """5d. VAL --batch 128 of phase 4's .ptl on phase 4's dataset: every
+    image listed, K2 once per batch; then fp32 on the card against the CPU
+    path on 32 of the images."""
+    from ifcb_classifier_tpu_torch.train.evaluate import do_validation
+    out = os.path.join(work, "val")
+    base = ["--batch", str(TRAIN_BATCH), "VAL", ds, ptl, "smoke_val"]
+    argv = base + ["--outdir", out, "--results", "val_results.json",
+                   "image_fullpaths", "output_scores", "input_classes"]
+    res, wall_s, (k2, k1, _) = counted(
+        lambda: do_validation(parsed(argv)))
+    batches = do_validation.stats["batches"]
+    if not (k2 == batches > 0 and k1 == 0):
+        raise AssertionError(f"VAL: K2 launched {k2} times, K1 {k1}, for "
+                             f"{batches} batches")
+    with open(os.path.join(out, "val_results.json")) as f:
+        listed = json.load(f)["image_fullpaths"]
+    every = sorted(os.path.join(ds, c, n) for c in os.listdir(ds)
+                   for n in os.listdir(os.path.join(ds, c)))
+    if sorted(listed) != every or res["n_images"] != len(every):
+        raise AssertionError(f"VAL listed {len(listed)} of {len(every)}")
+    do_validation(parsed(base + ["--outdir", out + "_warm"]))
+    warm = do_validation.stats
+    img_s = len(every) / warm["seconds"]
+    print(f"VAL (inception_v3 @299 bf16, batch {TRAIN_BATCH}, BNs "
+          f"unfolded): {len(every)} images listed, K2 launches {k2} = "
+          f"{batches} batches, K1 none; val_loss {res['val_loss']:.4f}, "
+          f"f1_w {res['f1_weighted']:.3f}; cold {wall_s:.2f} s incl. model "
+          f"build; warm eval loop {warm['seconds']:.3f} s = {img_s:.1f} "
+          f"img/s (decode, pack, K2, forward, one fetch) on {card}",
+          flush=True)
+    sub, n_sub = subset_tree(ds, os.path.join(work, "val32"), 8)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        o = os.path.join(work, "val32_" + dev)
+        r = do_validation(parsed(["--batch", "32", "--precision", "fp32",
+                                  "VAL", sub, ptl, "v32", "--outdir", o]),
+                          device=dev)
+        with open(os.path.join(o, "val_results.json")) as f:
+            got[dev] = (r["val_loss"], np.asarray(json.load(f)[
+                "output_scores"], np.float64))
+    (lg, sg), (lc, sc) = got["cuda"], got["cpu"]
+    err = float(np.abs(sg - sc).max())
+    rel = abs(lg - lc) / abs(lc)
+    if sg.shape != (n_sub, TRAIN_CLASSES) or not err <= TOL_CPU_SCORES \
+            or not rel <= TOL_VAL_LOSS:
+        raise AssertionError(f"VAL card fp32 vs CPU: scores {err}, "
+                             f"val_loss rel {rel}")
+    print(f"VAL card fp32 (TF32 off) vs CPU path ({n_sub} images): max |d "
+          f"score| {err:.4g} (tolerance {TOL_CPU_SCORES}), val_loss rel. "
+          f"diff {rel:.3g} (tolerance {TOL_VAL_LOSS})", flush=True)
+    return dict(k2=k2, img_s=img_s)
+
+
+def calc_img_norm_path(work, ds, counted, card):
+    """5e. CALC_IMG_NORM of phase 4's dataset at --resize 299 and 224 on
+    the card (K2 once per batch of 108), and on 64 of its images the card
+    against the CPU path (mean and std within TOL_CPU_SCORES)."""
+    from ifcb_classifier_tpu_torch.util_cli import main_cli as util_cli
+    k2_all = 0
+    sub, n_sub = subset_tree(ds, os.path.join(work, "norm64"), 16)
+    for r in (R, R_224):
+        (mean, std), wall_s, (k2, k1, _) = counted(
+            lambda: util_cli(["CALC_IMG_NORM", ds, "--resize", str(r)]))
+        n = len(os.listdir(os.path.join(ds, "class0"))) * TRAIN_CLASSES
+        if not (k2 == -(-n // NORM_BATCH) and k1 == 0):
+            raise AssertionError(f"CALC_IMG_NORM {r}: K2 {k2}, K1 {k1}")
+        k2_all += k2
+        argv = ["CALC_IMG_NORM", sub, "--resize", str(r)]
+        card_ms = util_cli(argv)
+        cpu_ms = util_cli(argv, device="cpu")
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(card_ms, cpu_ms))
+        if not err <= TOL_CPU_SCORES:
+            raise AssertionError(f"CALC_IMG_NORM {r} card vs CPU: {err}")
+        print(f"CALC_IMG_NORM --resize {r}: mean {np.round(mean, 4)}, std "
+              f"{np.round(std, 4)} over {n} images ({k2} K2 launches, K1 "
+              f"none, {wall_s:.2f} s); card vs CPU on {n_sub} images: max "
+              f"|d| "
+              f"{err:.3g} (tolerance {TOL_CPU_SCORES}) on {card}",
+              flush=True)
+    return dict(k2=k2_all)
+
+
+def weights_path(work, ds, ptl, counted, card):
+    """5f. PORT_WEIGHTS of phase 4's checkpoint to a torchvision .pth and
+    on to an .npz, bitwise equal to the checkpoint; then the trunk that
+    TRAIN --weights' loader returns from that .pth equals the file
+    bitwise with the heads fresh, and TRAIN --weights --emax 1 trains to
+    finite losses."""
+    import torch
+    from ifcb_classifier_tpu_torch.cli import main_cli
+    from ifcb_classifier_tpu_torch.models import get_namebrand_model
+    from ifcb_classifier_tpu_torch.models.torch_port import (
+        load_state_dict_file, load_torch_weights, params_from_jax)
+    from ifcb_classifier_tpu_torch.train.checkpoint import load_checkpoint
+    from ifcb_classifier_tpu_torch.train.state import init_params
+    from ifcb_classifier_tpu_torch.util_cli import main_cli as util_cli
+    pth, npz = (os.path.join(work, "trained" + e) for e in (".pth", ".npz"))
+    util_cli(["PORT_WEIGHTS", ptl, "-o", pth])
+    util_cli(["PORT_WEIGHTS", pth, "-o", npz])
+    want = {k: v.numpy() for k, v in
+            params_from_jax(*load_checkpoint(ptl)[:2]).items()}
+    got = load_state_dict_file(npz)
+    if sorted(got) != sorted(want) or any(
+            got[k].dtype != want[k].dtype or not np.array_equal(got[k],
+                                                                want[k])
+            for k in want):
+        raise AssertionError("PORT_WEIGHTS .ptl -> .pth -> .npz is not the "
+                             "checkpoint bitwise")
+    model = init_params(get_namebrand_model(
+        "inception_v3", TRAIN_CLASSES, train=True), 5)
+    template = {k: v.clone() for k, v in model.state_dict().items()}
+    loaded = load_torch_weights(pth, "inception_v3", template)
+    heads = [k for k in loaded if k.startswith(("fc.", "AuxLogits.fc."))]
+    bad = [k for k in loaded if (k in heads and not torch.equal(
+        loaded[k], template[k])) or (k not in heads and not np.array_equal(
+            loaded[k].numpy(), want[k]))]
+    if bad or len(heads) != 4:
+        raise AssertionError(f"--weights loader: {bad[:5]} differ")
+    out = os.path.join(work, "train_weights")
+    _, wall_s, (k2, _, _) = counted(lambda: main_cli(
+        ["--batch", str(TRAIN_BATCH), "TRAIN", ds, "inception_v3",
+         "smoke_weights", "--emax", "1", "--estop", "0", "--outdir", out,
+         "--seed", "2", "--weights", pth]))
+    with open(os.path.join(out, "epochs.csv")) as f:
+        row = f.read().splitlines()[1].split(",")
+    losses = [float(v) for v in row[2:4]]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"TRAIN --weights losses {losses}")
+    print(f"PORT_WEIGHTS .ptl -> .pth -> .npz: {len(got)} tensors bitwise "
+          f"the checkpoint's; --weights loader: trunk bitwise the .pth, "
+          f"{len(heads)} head tensors fresh; TRAIN --weights --emax 1: "
+          f"losses {losses} ({k2} K2 launches, {wall_s:.1f} s) on {card}",
+          flush=True)
+
 
 def main():
     import torch
@@ -1531,18 +2140,23 @@ def main():
     # 2. K1 and K2 against their plain versions
     rows, mix_rows, max_err = check_k1(rng)
     k2_rows, k2_mix_rows, k2_err = check_k2(rng)
+    k2_run_rows, k2_norm_rows, k2_serve_err = check_k2_serving(
+        np.random.default_rng(4))
+    k2_err = max(k2_err, k2_serve_err)
     k3_rows, n_geoms, k3_sweep = check_k3()
 
-    # 3. the RUN path, 3b. its int8 tier, 4. the TRAIN path
+    # 3. the RUN path, 3b. its int8 tier, 4. the TRAIN path, 5. the verbs
+    # that serve a trained model
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, run = main_path(work, rng, card)
         k3_launches, run8 = int8_path(work, run, card)
         train = train_path(work, os.path.join(work, "bins"), card)
+        k2_by_path, serve = serving_path(work, run, train, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 5. result lines
+    # 6. result lines
     main_row = next(r for r in rows if r["S"] == 128)
     k3_row = next(r for r in k3_rows if r["name"] == K3_MAIN)
     # K2's row: the rung most of this run's train batches landed on
@@ -1559,6 +2173,17 @@ def main():
           f"{k2_row['bound_ms']:.4f} ms; TRAIN {train['img_s']:.1f} img/s "
           f"(second epoch {train['warm_img_s']:.1f}); card {card}",
           flush=True)
+    # K2's serving row: the rung most RUN img batches landed on
+    k2_img_S = max(serve["rungs"], key=serve["rungs"].get)
+    k2_img = k2_run_rows[k2_img_S]
+    print(f"K2 at S={k2_img_S} B={RUN_BATCH} bf16 norm, no flips (the RUN "
+          f"img batches' most common rung): {k2_img['ms']:.4f} ms (device "
+          f"alone {k2_img['device_ms']:.4f} ms), bound "
+          f"{k2_img['bound_ms']:.4f} ms; RUN img {serve['img_s']:.1f} img/s "
+          f"bf16, {serve['img8_s']:.1f} int8; VAL {serve['val_img_s']:.1f} "
+          f"img/s; .ptl vs own checkpoint max |d score| "
+          f"{serve['ptl_err']:.3g}; K2 launches by path {k2_by_path}; card "
+          f"{card}", flush=True)
     print(f"K3 at {K3_MAIN} B={K3_BATCH} s8: {k3_row['ms']:.4f} ms (device "
           f"alone {k3_row['device_ms']:.4f} ms), bound "
           f"{k3_row['bound_ms']:.4f} ms ({k3_row['bound_by']}); "
@@ -1593,7 +2218,14 @@ def main():
         # (bf16, norm, flips): the rungs its batches land on
         "train_mix": [{k: r[k] for k in ("S", "ms", "device_ms", "bound_ms",
                                          "bound_by", "sides_from")}
-                      for r in k2_mix_rows if r["S"] in (512, 1024)]}, {
+                      for r in k2_mix_rows if r["S"] in (512, 1024)],
+        # launches keeps counting TRAIN's calls (phase 4); the serving
+        # verbs' calls, each counted from 0 around its own run (phase 5)
+        "launches_by_path": k2_by_path,
+        # B=256 bf16 norm, no flips (RUN --type img) at the rung most of
+        # phase 5a's batches landed on; CALC_IMG_NORM's f32 r=224 by rung
+        "run_img": dict(k2_img, batches_by_rung=serve["rungs"]),
+        "calc_img_norm_r224": [k2_norm_rows[S] for S in LADDER]}, {
         "name": "k3_qconv_s8", "route": "cuda",
         "source": "ifcb_classifier_tpu_torch/csrc/qconv_s8.cu",
         # an XLA fusion on the TPU, no pallas_call: _QuantCtx.conv's s8

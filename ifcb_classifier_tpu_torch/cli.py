@@ -1,10 +1,10 @@
 """The main CLI of the port: the reference's argparse surface
-(neuston_net.py:311-452) with the JAX package's global flags and its TRAIN
-and RUN sub-parsers, flag for flag (ifcb_classifier_tpu/cli.py:39-94,
+(neuston_net.py:311-452) with the JAX package's global flags and its TRAIN,
+RUN and VAL sub-parsers, flag for flag (ifcb_classifier_tpu/cli.py:39-132,
 :135-378).
 
-TRAIN of inception_v3 and RUN on bins are served (VAL comes with ROADMAP
-P6); flags that this port does not serve yet raise naming their ROADMAP
+TRAIN and VAL of inception_v3 and RUN on bins and image directories are
+served; flags that this port does not serve yet raise naming their ROADMAP
 item (train/loop.reject_unported_train, infer/runner.reject_unported).
 Runs on the GPU; without one it raises.
 """
@@ -20,6 +20,9 @@ def main(args, engine=None, device=None):
     if args.cmd_mode == "TRAIN":
         from .train.loop import do_training
         do_training(args, device=device)
+    elif args.cmd_mode == "VAL":
+        from .train.evaluate import do_validation
+        do_validation(args, device=device)
     else:
         from .infer.runner import do_run
         do_run(args, engine=engine)
@@ -36,9 +39,13 @@ def argparse_nn(parser=None):
     subparsers = parser.add_subparsers(
         dest="cmd_mode",
         help='Pick exactly one sub-command. Note: optional '
-             'arguments (below) must be specified before "TRAIN" or "RUN"')
+             'arguments (below) must be specified before "TRAIN", "RUN", '
+             'or "VAL"')
     train = subparsers.add_parser("TRAIN", help="Train a new model")
     run = subparsers.add_parser("RUN", help="Run a previously trained model")
+    val = subparsers.add_parser(
+        "VAL", help="Evaluate a previously trained model on a labeled "
+                    "dataset (TRAIN-comparable metrics and result files)")
 
     common = parser.add_argument_group(title="NN Common Args")
     common.add_argument("--batch", dest="batch_size", metavar="SIZE",
@@ -64,7 +71,50 @@ def argparse_nn(parser=None):
 
     argparse_nn_train(train)
     argparse_nn_run(run)
+    argparse_nn_val(val)
     return parser
+
+
+def argparse_nn_val(val):
+    """VAL: offline evaluation (train/evaluate.py has its contract). Flag
+    spellings mirror TRAIN's where shared."""
+    val.add_argument("SRC", help="Directory with class-label subfolders and "
+                     "images, labeled with the checkpoint's class names "
+                     "(or names mapped to them via --class-config)")
+    val.add_argument("MODEL", help="Path to a trained model artifact "
+                     "(.ptl checkpoint, as produced by TRAIN, or the "
+                     "reference's Lightning .ptl)")
+    val.add_argument("VAL_ID", help="Evaluation ID. Used by --outdir; "
+                     "recorded as model_id in the result files")
+
+    data = val.add_argument_group(title="Dataset Adjustments")
+    data.add_argument("--class-config", metavar=("CSV", "COL"), nargs=2,
+                      help="Skip and combine classes as defined by column "
+                           "COL of a special CSV configuration file (same "
+                           "semantics as TRAIN — use it to map new folder "
+                           "names onto the checkpoint's classes)")
+    data.add_argument("--class-min", metavar="MIN", default=1, type=int,
+                      help="Exclude classes with fewer than MIN instances. "
+                           "Default is 1 (evaluate everything — unlike "
+                           "TRAIN, dropping small classes would silently "
+                           "change the measurement)")
+    data.add_argument("--class-max", metavar="MAX", default=None, type=int,
+                      help="Limit classes to a MAX number of instances.")
+
+    out = val.add_argument_group(title="Output Options")
+    out.add_argument("--outdir", default="val-output/{VAL_ID}",
+                     help='Default is "val-output/{VAL_ID}"')
+    out.add_argument("--args-log", metavar="ALOG", default="args.yml",
+                     help="Specify a human-readable yaml filename. "
+                          "Default is args.yml")
+    out.add_argument("--results", dest="result_files",
+                     metavar=("FNAME", "SERIES"), nargs="+", action="append",
+                     help="FNAME: results filename (.json .h5 .mat; "
+                          '"{epoch}" renders as "VAL"). SERIES: data series '
+                          "to include — same vocabulary as TRAIN --results; "
+                          "the training_* series are empty (no training set "
+                          "in an offline evaluation). Default: "
+                          "val_results.json with the standard series.")
 
 
 def argparse_nn_train(train):
@@ -80,8 +130,9 @@ def argparse_nn_train(train):
                        help="If set, initializes MODEL ~without~ pretrained "
                             "neurons. Default (unset) is pretrained")
     model.add_argument("--weights", metavar="PTH", default=None,
-                       help="Path to a ported torchvision state_dict "
-                            "(not ported yet, ROADMAP P6)")
+                       help="Path to a torchvision state_dict (.pth, .npz "
+                            "or a Lightning .ptl) that seeds the trunk; the "
+                            "classifier heads stay fresh")
     model.add_argument("--img-norm", nargs=2, metavar=("MEAN", "STD"),
                        help="Normalize images by MEAN and STD. "
                             'eg1: "0.667 0.161", eg2: "0.056,0.058,0.051 '
@@ -158,7 +209,12 @@ def argparse_nn_train(train):
                           "reference (results.mat + standard series).")
     out.add_argument("-p", "--plot", dest="plot_files",
                      metavar=("FNAME", "PARAM"), nargs="+", action="append",
-                     help="Make plots (not ported yet, ROADMAP P6)")
+                     help="Make plots on best epochs. FNAME: figure file "
+                          '("{epoch}" recognized; any matplotlib format). '
+                          "PARAM: curves f1 confusion perclass_f1 "
+                          "perclass_recall perclass_precision "
+                          "counts_perclass winscores (default: curves "
+                          "confusion perclass_f1)")
 
     # the reference reserved this whole group but left it commented out
     # (neuston_net.py:385-390); --batch-norm is dropped — its author "forgot
@@ -215,13 +271,14 @@ def argparse_nn_run(run):
                      "an image, a text-file, or a directory (recursive).")
     run.add_argument("MODEL",
                      help="Path to a previously-trained model file (a "
-                          "native checkpoint)")
+                          "native checkpoint or the reference's Lightning "
+                          ".ptl)")
     run.add_argument("RUN_ID", help="Run ID. Used by --outdir")
 
     run.add_argument("--type", dest="src_type", default="bin",
                      choices=["bin", "img"],
                      help='File type to perform classification on. '
-                          'Default is "bin" (img is not ported yet)')
+                          'Default is "bin"')
     run.add_argument("--outdir", default="run-output/{RUN_ID}/v3/{MODEL_ID}",
                      help='Default is "run-output/{RUN_ID}/v3/{MODEL_ID}"')
     run.add_argument("--outfile", action="append",
@@ -271,21 +328,27 @@ def argparse_nn_run(run):
                           "bucket covering it.")
     run.add_argument("-p", "--plot", dest="plot_files",
                      metavar=("FNAME", "PARAM"), nargs="+", action="append",
-                     help="Make plots (not ported yet, ROADMAP P6)")
+                     help="Make plots. FNAME: figure file; with bin "
+                          "patterns ({BIN_ID} etc.) one per bin, else one "
+                          "aggregate figure at the end. PARAM: counts "
+                          "scores (default both)")
 
 
 def main_cli(argv=None, device=None):
     """Parse and run on ``device`` (default ``cuda``; raises without a
     GPU). RUN returns the engine, whose ``dispatches`` count the batches it
-    sent to the device; TRAIN returns None (train/loop.do_training.stats
-    holds its counts)."""
+    sent to the device; TRAIN and VAL return None
+    (train/loop.do_training.stats and train/evaluate.do_validation.stats
+    hold their counts)."""
     parser = argparse_nn()
     args = parser.parse_args(argv)
     if args.cmd_mode is None:
-        parser.error('missing sub-command: specify "TRAIN" or "RUN".')
-    if args.cmd_mode == "TRAIN":
-        from .train.loop import reject_unported_train
-        reject_unported_train(args)
+        parser.error('missing sub-command: specify "TRAIN", "RUN" or '
+                     '"VAL".')
+    if args.cmd_mode in ("TRAIN", "VAL"):
+        if args.cmd_mode == "TRAIN":
+            from .train.loop import reject_unported_train
+            reject_unported_train(args)
         add_runtime_params(args)
         proc_outdir(args)
         main(args, device=device)

@@ -17,7 +17,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 __all__ = ["CANVAS_LADDER", "MAX_CANVAS", "ladder_size", "shrink_to_fit",
-           "decode_image", "pack_canvas_batch", "HostLoader", "prefetch"]
+           "decode_image", "canvas_shape", "pack_canvas_batch", "HostLoader",
+           "prefetch"]
 
 # Plankton ROIs are typically < 256 px on a side.
 CANVAS_LADDER = (64, 128, 256, 512, 1024)
@@ -31,16 +32,16 @@ def ladder_size(max_dim: int) -> int:
     return MAX_CANVAS
 
 
-def decode_image(path: str) -> np.ndarray:
-    """Decode an image file to uint8 (H,W,3) — the reference's
-    `datasets.folder.default_loader` (PIL, .convert('RGB')). Only an image
-    over MAX_CANVAS on a side is downscaled here (PIL thumbnail, bilinear)
-    so canvases stay bounded. (The JAX package decodes 8-bit PNG/JPEG with
-    its native decoder first, byte-identical to PIL; that decoder is not
-    ported yet, ROADMAP.)"""
+def decode_image(path: str, rgb: bool = True) -> np.ndarray:
+    """Decode an image file to uint8 (H,W,3), or (H,W) with ``rgb=False``
+    — the reference's `datasets.folder.default_loader` (PIL,
+    .convert('RGB')). Only an image over MAX_CANVAS on a side is
+    downscaled here (PIL thumbnail, bilinear) so canvases stay bounded.
+    (The JAX package decodes 8-bit PNG/JPEG with its native decoder first,
+    byte-identical to PIL; that decoder is not ported yet, ROADMAP.)"""
     from PIL import Image
     with Image.open(path) as im:
-        im = im.convert("RGB")
+        im = im.convert("RGB" if rgb else "L")
         if max(im.size) > MAX_CANVAS:
             im.thumbnail((MAX_CANVAS, MAX_CANVAS), Image.BILINEAR)
         return np.asarray(im, dtype=np.uint8)
@@ -64,10 +65,26 @@ def shrink_to_fit(img: np.ndarray, S: int) -> np.ndarray:
                       np.uint8)
 
 
-def pack_canvas_batch(images, batch_size=None, out=None):
-    """Pack a list of uint8 arrays, all 2-D (gray) or all 3-D (RGB), into
-    one canvas batch of their rank, into ``out`` = (canvas, sizes) when
-    given (shapes as returned below).
+def canvas_shape(images, batch_size, rgb=None):
+    """The canvas batch that holds ``images``: (B, S, S) gray or (B, S, S,
+    3) RGB, S the ladder rung of the largest side. ``rgb=None`` is RGB
+    when any image is."""
+    if not images:
+        raise ValueError("empty batch")
+    if rgb is None:
+        rgb = any(img.ndim == 3 for img in images)
+    elif not rgb and any(img.ndim != 2 for img in images):
+        raise ValueError("pack_canvas_batch: a gray canvas (rgb=False) "
+                         "cannot hold 3-D (RGB) images")
+    S = ladder_size(max(max(img.shape[0], img.shape[1]) for img in images))
+    return (batch_size, S, S, 3) if rgb else (batch_size, S, S)
+
+
+def pack_canvas_batch(images, batch_size=None, rgb=None, out=None):
+    """Pack a list of uint8 arrays (2-D gray or 3-D RGB) into one canvas
+    batch, into ``out`` = (canvas, sizes) when given (shapes as returned
+    below). ``rgb=None`` gives a 3-channel canvas when any image is RGB;
+    gray images on a 3-channel canvas are broadcast to its channels.
 
     Returns (canvas, sizes, n_valid):
       canvas  uint8 [B, S, S] (gray) or [B, S, S, 3] (RGB); S = ladder size
@@ -76,16 +93,9 @@ def pack_canvas_batch(images, batch_size=None, out=None):
       n_valid number of real images (B - n_valid are zero padding rows)
     """
     n = len(images)
-    if n == 0:
-        raise ValueError("empty batch")
-    ranks = {img.ndim for img in images}
-    if ranks not in ({2}, {3}):
-        raise ValueError("pack_canvas_batch: images must be all 2-D (gray) "
-                         "or all 3-D (RGB), got ndim {}".format(sorted(ranks)))
     B = batch_size or n
-    max_dim = max(max(img.shape[0], img.shape[1]) for img in images)
-    S = ladder_size(max_dim)
-    shape = (B, S, S) + images[0].shape[2:]
+    shape = canvas_shape(images, B, rgb)
+    rgb, S = len(shape) == 4, shape[1]
     if out is None:
         out = np.empty(shape, np.uint8), np.empty((B, 2), np.int32)
     canvas, sizes = out
@@ -96,9 +106,12 @@ def pack_canvas_batch(images, batch_size=None, out=None):
     sizes[:] = 1
     for k, img in enumerate(images):
         if img.shape[0] > S or img.shape[1] > S:
+            if rgb and img.ndim == 2:  # the JAX package's order: the
+                img = np.stack([img] * 3, axis=-1)  # RGB image shrinks
             img = shrink_to_fit(img, S)  # never crop — see shrink_to_fit
         h, w = img.shape[:2]
-        canvas[k, :h, :w] = img
+        canvas[k, :h, :w] = img[..., None] if rgb and img.ndim == 2 \
+            else img
         sizes[k] = (h, w)
     return canvas, sizes, n
 
@@ -106,17 +119,21 @@ def pack_canvas_batch(images, batch_size=None, out=None):
 class HostLoader:
     """Batched manifest loader with threaded decode and padded static shapes.
 
-    items: list of image paths (decoded to RGB with decode_image) OR
-           in-memory uint8 arrays.
+    items: list of image paths (decoded with decode_image, to RGB or with
+           ``rgb=False`` to gray) OR in-memory uint8 arrays.
     labels: optional int targets parallel to items.
 
     Yields dicts: canvas uint8[B,S,S(,3)], sizes int32[B,2], labels int32[B],
     mask bool[B] (False on padding rows), indices of the items in this batch.
+    With ``pin_memory`` the canvas and sizes are page-locked torch tensors
+    (what an engine copies to the card without draining its stream; CUDA's
+    host allocator caches them, so a batch's buffer is reused once its copy
+    has run), else numpy arrays.
     """
 
     def __init__(self, items, labels=None, batch_size=108, num_workers=4,
-                 shuffle=False, seed=0, balanced=False,
-                 n_real=None, cache=False):
+                 shuffle=False, seed=0, rgb=True, balanced=False,
+                 n_real=None, cache=False, pin_memory=False):
         self.items = list(items)
         self.labels = list(labels) if labels is not None else None
         # items[n_real:] are manifest pads (the multi-process slice,
@@ -127,6 +144,8 @@ class HostLoader:
         self.num_workers = max(1, int(num_workers))
         self.shuffle = shuffle
         self.seed = seed
+        self.rgb = rgb
+        self.pin_memory = pin_memory
         self.balanced = balanced and labels is not None
         # --cache-images: keep decoded uint8 arrays in RAM after the first
         # epoch (epochs 2+ skip decoding). Opt-in (memory ~ the decoded
@@ -144,10 +163,10 @@ class HostLoader:
         if self._decoded is not None:
             img = self._decoded.get(i)
             if img is None:  # races only duplicate a decode, never corrupt
-                img = decode_image(item)
+                img = decode_image(item, rgb=self.rgb)
                 self._decoded[i] = img
             return img
-        return decode_image(item)
+        return decode_image(item, rgb=self.rgb)
 
     def __iter__(self):
         rng = np.random.default_rng((self.seed or 0) + self._epoch)
@@ -180,7 +199,7 @@ class HostLoader:
                 n = len(images)
                 while len(images) < B:
                     images.append(images[len(images) % n])
-                canvas, sizes, _ = pack_canvas_batch(images, batch_size=B)
+                canvas, sizes = self._pack(images, B)
                 labels = np.zeros(B, dtype=np.int32)
                 if self.labels is not None:
                     labels[:n] = [self.labels[i] for i in idx]
@@ -188,6 +207,17 @@ class HostLoader:
                 mask[:n] = idx < self.n_real
                 yield dict(canvas=canvas, sizes=sizes, labels=labels,
                            mask=mask, indices=idx)
+
+    def _pack(self, images, B):
+        if not self.pin_memory:
+            return pack_canvas_batch(images, batch_size=B)[:2]
+        import torch
+        canvas = torch.empty(canvas_shape(images, B), dtype=torch.uint8,
+                             pin_memory=True)
+        sizes = torch.empty((B, 2), dtype=torch.int32, pin_memory=True)
+        pack_canvas_batch(images, batch_size=B,
+                          out=(canvas.numpy(), sizes.numpy()))
+        return canvas, sizes
 
 
 def prefetch(iterable, depth: int = 2):

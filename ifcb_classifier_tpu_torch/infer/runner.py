@@ -1,19 +1,23 @@
-"""The RUN engine and verb on bins (counterpart of
+"""The RUN engine and verb (counterpart of
 ifcb_classifier_tpu/infer/runner.py; the reference's `do_run`,
 neuston_net.py:163-308).
 
-One engine persists across all bins: the checkpoint is read, its BNs are
-folded into the convolutions, and the model sits on the device. ROIs are
-packed straight from each bin's .roi buffer into uint8 canvases on a
-64/128/256/512/1024 ladder, preprocessed on the device by kernel K1
-(ops/preprocess.py), classified, and fetched once per bin. Per-bin output
-files and per-bin error isolation follow the reference.
+One engine persists across all inputs: the checkpoint (the port's, or a
+reference Lightning .ptl) is read, its BNs are folded into the
+convolutions, and the model sits on the device. Images are packed into
+uint8 canvases on a 64/128/256/512/1024 ladder: gray ``[B,S,S]`` canvases
+(bin ROIs, packed straight from each bin's .roi buffer) are preprocessed
+on the device by kernel K1, RGB ``[B,S,S,3]`` canvases (an image
+directory, or a list mixing gray and RGB images) by kernel K2 without
+flips (ops/preprocess.py); then classified and fetched once per bin, or
+once per image-directory run. Per-bin output files and per-bin error
+isolation follow the reference.
 
-Served here: ``RUN --type bin``, single process, one pass, at bf16/fp32
-or ``--precision int8`` (models/quant.py: activation scales calibrated on
-the first batch(es) or a pinned sample, then every conv through kernel K3).
-The other modes raise naming the slice that ports them (see
-UNPORTED_RUN_FLAGS).
+Served here: ``RUN --type bin`` and ``--type img``, single process, one
+pass, at bf16/fp32 or ``--precision int8`` (models/quant.py: activation
+scales calibrated on the first batch(es) or a pinned sample, then every
+conv through kernel K3), with ``--summary`` and ``--plot``. The other
+modes raise naming the slice that ports them (see UNPORTED_RUN_FLAGS).
 """
 
 from __future__ import annotations
@@ -25,31 +29,29 @@ import time
 import numpy as np
 import torch
 
-from ..data.datasets import parse_imgnorm
+from ..data.datasets import list_image_paths, parse_imgnorm
 from ..data.ifcb import SCHEMA_VERSION_1, DataDirectory, infilled_images
-from ..data.pipeline import MAX_CANVAS, ladder_size, pack_canvas_batch
+from ..data.pipeline import (MAX_CANVAS, HostLoader, ladder_size,
+                             pack_canvas_batch, prefetch)
 from ..models import get_namebrand_model
 from ..models.fold import fold_state_dict, supports_fold
 from ..models.quant import (_QUANT_KEY, make_calib_fn, make_quant_predict,
                             quantize_params, supports_quant)
 from ..models.torch_port import params_from_jax, qconv_from_jax
-from ..ops.preprocess import preprocess_gray
+from ..ops.preprocess import preprocess_gray, preprocess_rgb
+from ..results.plots import SCORE_HIST_BINS
 from ..results.run import save_run_results, validate_outfiles
 from ..train.checkpoint import load_checkpoint
 from ..train.state import make_predict_step
 from ..utils.config import resolve_device, resolve_dtype
 
-SCORE_HIST_BINS = 50  # the JAX package's results/plots.py:194
-
 # (args attribute, the values this slice serves, what ports the others)
 UNPORTED_RUN_FLAGS = (
-    ("src_type", ("bin",), "--type img: the image-directory slice, P6"),
     ("gobig", (None, False), "--gobig: serving extras, P9"),
     ("watch", (None,), "--watch: serving extras, P9"),
     ("watch_settle", (None,), "--watch-settle: serving extras, P9"),
     ("watch_passes", (None,), "--watch-passes: serving extras, P9"),
     ("profile", (None, 0), "--profile: serving extras, P9"),
-    ("plot_files", (None, []), "--plot: the plots slice, P6"),
     ("mesh", (None, "auto"), "--mesh: parallelism, P10"),
 )
 
@@ -234,19 +236,27 @@ class InferenceEngine:
                 return b
         return self.batch_size
 
-    def _host_buffers(self, B, S):
-        """Host tensors for one dispatch: uint8 canvas [B,S,S] and int32
-        sizes [B,2]. On CUDA they are page-locked, so the packers write
+    @property
+    def pin_memory(self):
+        """Whether host canvases are page-locked: on CUDA the packers write
         straight into memory the H2D copy reads asynchronously (from
         pageable memory CUDA drains the stream before it copies, which would
-        serialise packing the next batch with computing this one)."""
-        pin = self.device.type == "cuda"
-        return (torch.empty((B, S, S), dtype=torch.uint8, pin_memory=pin),
+        serialise packing the next batch with computing this one). CUDA's
+        host allocator caches the buffers, reusing one once its copy ran."""
+        return self.device.type == "cuda"
+
+    def _host_buffers(self, B, S, rgb=False):
+        """Host tensors for one dispatch: uint8 canvas [B,S,S] (gray) or
+        [B,S,S,3] (RGB) and int32 sizes [B,2], page-locked on CUDA."""
+        pin = self.pin_memory
+        shape = (B, S, S, 3) if rgb else (B, S, S)
+        return (torch.empty(shape, dtype=torch.uint8, pin_memory=pin),
                 torch.empty((B, 2), dtype=torch.int32, pin_memory=pin))
 
     def _dispatch(self, canvas, sizes):
-        """Host uint8 canvas [B,S,S] + int32 sizes [B,2] tensors (from
-        _host_buffers) → device probs [B, n_classes], without waiting for
+        """Host uint8 canvas [B,S,S] (gray: K1) or [B,S,S,3] (RGB: K2, no
+        flips) + int32 sizes [B,2] tensors (from _host_buffers or a pinned
+        HostLoader) → device probs [B, n_classes], without waiting for
         the device (except to fetch the absmax while an int8 engine
         calibrates: on its first ``calib_batches`` batches it calibrates
         on this data; once enough are seen it swaps in the int8 graph —
@@ -263,9 +273,10 @@ class InferenceEngine:
         canvas = canvas.to(self.device, non_blocking=True)
         sizes = sizes.to(self.device, non_blocking=True)
         mean, std = self._mean_std
-        x = preprocess_gray(canvas, sizes, out_size=self.resize, mean=mean,
-                            std=std,
-                            dtype=torch.float32 if self.quant else self.dtype)
+        preprocess = preprocess_gray if canvas.dim() == 3 else preprocess_rgb
+        x = preprocess(canvas, sizes, out_size=self.resize, mean=mean,
+                       std=std, dtype=torch.float32 if self.quant
+                       else self.dtype)
         self.dispatches += 1
         if self.quant and not self._quant_ready:
             predict = self._predict  # the full-precision graph
@@ -284,13 +295,16 @@ class InferenceEngine:
         return np.split(rows, np.cumsum([n for _, n in pending])[:-1])
 
     def predict_images(self, images):
-        """images: list of 2-D uint8 arrays. Returns [N, n_classes] float32
-        softmax scores in input order. Images are grouped by canvas ladder
-        size before chunking, so one large image cannot inflate a chunk of
-        small ones."""
+        """images: list of uint8 arrays, 2-D gray or 3-D RGB. Returns [N,
+        n_classes] float32 softmax scores in input order. Images are
+        grouped by canvas ladder size before chunking, so one large image
+        cannot inflate a chunk of small ones. A list holding any RGB image
+        goes on RGB canvases (its gray images broadcast to the three
+        channels) through K2, an all-gray one through K1."""
         if not images:
             return np.zeros((0, len(self.classes)), np.float32)
         B = self.batch_size
+        rgb = any(img.ndim == 3 for img in images)
         ladders = np.asarray(
             [ladder_size(int(max(img.shape[0], img.shape[1])))
              for img in images])
@@ -301,15 +315,35 @@ class InferenceEngine:
             for c0 in range(0, idx.size, B):
                 sel = idx[c0:c0 + B]
                 canvas, sizes = self._host_buffers(self.bucket_for(sel.size),
-                                                   int(S))
+                                                   int(S), rgb)
                 pack_canvas_batch([images[j] for j in sel],
-                                  batch_size=canvas.shape[0],
+                                  batch_size=canvas.shape[0], rgb=rgb,
                                   out=(canvas.numpy(), sizes.numpy()))
                 pending.append((self._dispatch(canvas, sizes), sel.size))
                 sels.append(sel)
         for probs, sel in zip(self._fetch(pending), sels):
             out[sel] = probs
         return out
+
+    def predict_loader(self, loader):
+        """Stream a HostLoader (image paths; pinned on CUDA, see
+        pin_memory) through the engine: asynchronous dispatch, one fetch.
+        Returns (probs [N, n_classes], paths in traversal order).
+
+        HostLoader pads a short batch by cycling real images, always as the
+        tail rows, so the canvas is cut to the smallest bucket covering the
+        real rows and only pad rows are dropped."""
+        pending, paths = [], []
+        for b in prefetch(iter(loader)):
+            n = int(b["mask"].sum())
+            bb = self.bucket_for(n)
+            canvas, sizes = (torch.as_tensor(b[k]) for k in ("canvas",
+                                                              "sizes"))
+            pending.append((self._dispatch(canvas[:bb], sizes[:bb]), n))
+            paths.extend(loader.items[i] for i in b["indices"][:n])
+        if not pending:
+            return np.zeros((0, len(self.classes)), np.float32), paths
+        return np.concatenate(self._fetch(pending)), paths
 
     def predict_bin(self, bin):
         """ROIs of a schema-v2 bin are packed straight from the .roi buffer
@@ -444,26 +478,42 @@ def parse_filter(filter_arg):
 
 
 def do_run(args, engine=None):
-    """RUN --type bin over a bin directory, a .txt bin list or one bin."""
+    """RUN over a bin directory, a .txt bin list or one bin (``--type
+    bin``), or over an image directory, a .txt image list or one image
+    (``--type img``)."""
     reject_unported(args)
     if (getattr(args, "calib_batches", None) not in (None, 1)
             and getattr(args, "precision", None) != "int8"):
         raise ValueError("--calib-batches requires --precision int8 "
                          "(it sizes the int8 calibration phase)")
+    src_type = getattr(args, "src_type", None) or "bin"
     if engine is None:
         engine = InferenceEngine.from_args(args)
 
     if os.path.isdir(args.SRC) and not args.SRC.endswith(os.sep):
         args.SRC = args.SRC + os.sep
     if not args.outfile:
-        args.outfile = ["D{BIN_YEAR}/D{BIN_DATE}/{BIN_ID}_class.h5"]
-    validate_outfiles(args.outfile, src_type="bin")
+        args.outfile = (["D{BIN_YEAR}/D{BIN_DATE}/{BIN_ID}_class.h5"]
+                        if src_type == "bin" else ["img_results.json"])
+    validate_outfiles(args.outfile, src_type=src_type)
     filter_mode, filter_keywords = parse_filter(args.filter)
 
-    summary_file = getattr(args, "summary", None)
-    agg_counts = np.zeros(len(engine.classes), np.int64)
-    agg_hist = np.zeros(SCORE_HIST_BINS, np.int64)
-    agg_total = 0
+    # --plot: FNAMEs with bin patterns render per bin, plain ones one
+    # aggregate figure at the end; validated here, before any compute
+    plot_files = getattr(args, "plot_files", None) or []
+    perbin_plots = [pf for pf in plot_files
+                    if "{BIN_" in pf[0] or "{INPUT_SUBDIRS}" in pf[0]]
+    agg_plots = [pf for pf in plot_files if pf not in perbin_plots]
+    if plot_files:
+        from ..results.plots import save_run_plots, validate_plot_files
+        validate_plot_files(plot_files, which="run", src_type=src_type)
+
+    agg = RunAggregate(len(engine.classes))
+    if src_type == "img":
+        _run_images(args, engine, filter_mode, filter_keywords, agg,
+                    agg_plots)
+        return
+
     error_bins = []
     n_done = 0
 
@@ -482,17 +532,20 @@ def do_run(args, engine=None):
         return DataDirectory.from_basepaths([args.SRC])
 
     def emit_result(bin_obj, targets, probs):
-        nonlocal n_done, agg_total
+        nonlocal n_done
         input_images = [bin_obj.with_target(t) for t in targets]
         for outfile in args.outfile:
             save_run_results(input_images, probs, engine.classes,
                              args.cmd_timestamp, args.outdir, outfile,
                              engine.model_id, bin_obj)
-        cls = np.argmax(probs, axis=1)
-        agg_counts[:] += np.bincount(cls, minlength=len(engine.classes))
-        agg_hist[:] += np.histogram(np.max(probs, axis=1),
-                                    bins=SCORE_HIST_BINS, range=(0, 1))[0]
-        agg_total += len(cls)
+        cls, win = agg.add(probs)
+        fmt = _bin_fmt(bin_obj)
+        for fname, *plot_params in perbin_plots:
+            save_run_plots(
+                os.path.join(args.outdir, fname).format(**fmt)
+                .replace(2 * os.sep, os.sep), plot_params,
+                class_labels=engine.classes, output_classes=cls,
+                winscores=win, title=str(bin_obj.pid))
         n_done += 1
         print(".", end="", flush=True)
 
@@ -530,28 +583,93 @@ def do_run(args, engine=None):
         except Exception as e:  # per-bin isolation (neuston_net.py:266-268)
             error_bins.append((bin_obj, e))
 
-    if summary_file:
-        path = os.path.join(args.outdir, summary_file)
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        payload = dict(
-            version="v3", run_id=args.RUN_ID, model_id=engine.model_id,
-            timestamp=args.cmd_timestamp, updated_at=time.time(),
-            src_type="bin", n_images=None, n_bins_done=n_done,
-            n_rois=int(agg_total),
-            class_counts={c: int(n) for c, n in
-                          zip(engine.classes, agg_counts)},
-            score_histogram=dict(bins=len(agg_hist), range=[0, 1],
-                                 counts=[int(x) for x in agg_hist]),
-            n_errors=len(error_bins),
-            errors=[dict(bin=str(b), type=type(e).__name__, message=str(e))
-                    for b, e in error_bins[-100:]])
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(payload, f, indent=1)
-        os.replace(tmp, path)
+    if agg_plots and agg.total:
+        for fname, *plot_params in agg_plots:
+            save_run_plots(os.path.join(args.outdir, fname), plot_params,
+                           class_labels=engine.classes, counts=agg.counts,
+                           score_hist=agg.hist, total=agg.total,
+                           title="{} ({} bins)".format(args.RUN_ID, n_done))
+    _write_summary(args, engine, agg, "bin", n_done=n_done,
+                   error_bins=error_bins)
 
     print("\nRUN IS DONE ({} bins)".format(n_done))
     if error_bins:
         print("Bins that errored and produced no output:")
         for bin_obj, err in error_bins:
             print(bin_obj, type(err), err)
+
+
+def _run_images(args, engine, filter_mode, filter_keywords, agg, agg_plots):
+    """RUN --type img (the JAX runner's :1352-1392): the images under SRC
+    (after --filter) through a HostLoader at the engine's batch, RGB
+    canvases through K2, one fetch at the end; one result file, or one
+    per parent directory with {INPUT_SUBDIRS}."""
+    img_paths = list_image_paths(args.SRC, filter_mode, filter_keywords)
+    if not img_paths:
+        raise ValueError(f"No images to process under {args.SRC}")
+    loader = HostLoader(img_paths, batch_size=engine.batch_size,
+                        num_workers=args.loaders, rgb=True,
+                        pin_memory=engine.pin_memory)
+    probs, paths = engine.predict_loader(loader)
+    for outfile in args.outfile:
+        save_run_results(paths, probs, engine.classes, args.cmd_timestamp,
+                         args.outdir, outfile, engine.model_id, args.SRC)
+    cls, win = agg.add(probs)
+    if agg_plots:
+        from ..results.plots import save_run_plots
+    for fname, *plot_params in agg_plots:
+        save_run_plots(os.path.join(args.outdir, fname), plot_params,
+                       class_labels=engine.classes, output_classes=cls,
+                       winscores=win, title="{} ({} images)".format(
+                           args.RUN_ID, len(paths)))
+    _write_summary(args, engine, agg, "img", n_images=len(paths))
+    print("RUN IS DONE ({} images)".format(len(paths)))
+
+
+class RunAggregate:
+    """Fixed-size accumulators of a RUN: classified ROIs per class (argmax)
+    and a histogram of the winning scores."""
+
+    def __init__(self, n_classes):
+        self.counts = np.zeros(n_classes, np.int64)
+        self.hist = np.zeros(SCORE_HIST_BINS, np.int64)
+        self.total = 0
+
+    def add(self, probs):
+        """Count ``probs`` [N, n_classes] in; returns (argmax, winning
+        score) per row."""
+        cls = np.argmax(probs, axis=1)
+        win = np.max(probs, axis=1)
+        self.counts += np.bincount(cls, minlength=len(self.counts))
+        self.hist += np.histogram(win, bins=SCORE_HIST_BINS,
+                                  range=(0, 1))[0]
+        self.total += len(cls)
+        return cls, win
+
+
+def _write_summary(args, engine, agg, src_type, n_done=0, error_bins=(),
+                   n_images=None):
+    """--summary: the machine-readable run summary, written atomically;
+    ``src_type`` tells its readers whether ``n_bins_done`` or ``n_images``
+    counts the work (the JAX runner's :855-870)."""
+    summary_file = getattr(args, "summary", None)
+    if not summary_file:
+        return
+    path = os.path.join(args.outdir, summary_file)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = dict(
+        version="v3", run_id=args.RUN_ID, model_id=engine.model_id,
+        timestamp=args.cmd_timestamp, updated_at=time.time(),
+        src_type=src_type, n_images=n_images, n_bins_done=n_done,
+        n_rois=int(agg.total),
+        class_counts={c: int(n) for c, n in
+                      zip(engine.classes, agg.counts)},
+        score_histogram=dict(bins=len(agg.hist), range=[0, 1],
+                             counts=[int(x) for x in agg.hist]),
+        n_errors=len(error_bins),
+        errors=[dict(bin=str(b), type=type(e).__name__, message=str(e))
+                for b, e in list(error_bins)[-100:]])
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=1)
+    os.replace(tmp, path)

@@ -14,7 +14,11 @@ the msgpack types this format uses: map, array, str, bin, int, float, bool,
 nil and ext. (flax splits a leaf over 1 GiB into chunks; no model here has
 one.)
 
-Lightning ``.ptl`` checkpoints of the reference are read by a later slice.
+The reference's Lightning ``.ptl`` checkpoints (a torch zip) are read too
+(``_load_lightning_checkpoint``): the allowlist unpickler of
+models/torch_port.py, the net's tensors ported into a zero template of the
+model the hparams name, the hparams carried over as the JAX package gives
+them.
 
 The resume state ``chkpts/last.state`` (save_train_state) is the port's
 own format, deliberately not the JAX package's: the same codec and
@@ -271,13 +275,12 @@ def save_checkpoint(path: str, params, batch_stats, hparams: dict):
 
 
 def load_checkpoint(path: str):
-    """Returns (params, batch_stats, hparams_dict) as numpy trees."""
+    """Returns (params, batch_stats, hparams_dict) as numpy trees, from the
+    port's format or a reference Lightning ``.ptl``."""
     with open(path, "rb") as f:
         blob = f.read()
-    if blob[:4] == b"PK\x03\x04":
-        raise NotImplementedError(
-            f"{path}: a Lightning .ptl checkpoint; reading those is not "
-            "ported yet (ROADMAP P6)")
+    if blob[:4] == b"PK\x03\x04":  # a torch zip
+        return _load_lightning_checkpoint(path)
     try:
         payload = msgpack_loads(blob)
     except (ValueError, struct.error, UnicodeDecodeError) as e:
@@ -287,6 +290,79 @@ def load_checkpoint(path: str):
         raise ValueError(f"{path}: not an ifcbnn checkpoint")
     hparams = json.loads(payload["hparams_json"])
     return payload["params"], payload["batch_stats"], hparams
+
+
+def _read_torch_zip(path: str):
+    """The unpickled torch zip at ``path`` through the allowlist loader;
+    a zip torch cannot read is a ValueError, a refused class stays the
+    unpickler's pickle.UnpicklingError."""
+    from ..models.torch_port import tolerant_torch_load
+    try:
+        return tolerant_torch_load(path)
+    except (RuntimeError, EOFError, OSError) as e:
+        raise ValueError(f"{path}: a zip but no torch checkpoint ({e})") \
+            from e
+
+
+def _ptl_hparams(ckpt) -> dict:
+    hp = ckpt.get("hyper_parameters") or ckpt.get("hparams") or {}
+    return hp if isinstance(hp, dict) else vars(hp)  # argparse.Namespace
+
+
+def _load_lightning_checkpoint(path: str):
+    """Port a reference ``.ptl`` Lightning checkpoint to the JAX package's
+    trees (its train/checkpoint.py:119-176).
+
+    The reference persists the full TRAIN args namespace as
+    hyper_parameters (neuston_models.py:50-54), including the keys RUN
+    recovers later: MODEL, classes, resize, img_norm, seed, model_id,
+    pretrained (neuston_net.py:62,70,173-174; neuston_data.py:344). The
+    net lives at ``self.model``, so its keys carry a ``model.`` prefix.
+    Keys the served model lacks (its aux head) are ignored; a tensor it
+    needs and the file lacks raises."""
+    ckpt = _read_torch_zip(path)
+    if not (isinstance(ckpt, dict) and "state_dict" in ckpt):
+        raise ValueError(f"{path}: torch file without a state_dict — "
+                         "not a Lightning checkpoint")
+    hp = _ptl_hparams(ckpt)
+    if "MODEL" not in hp or "classes" not in hp:
+        raise ValueError(
+            f"{path}: Lightning checkpoint lacks MODEL/classes hparams "
+            "(is this a NeustonModel .ptl?)")
+    import torch
+
+    from ..models import get_namebrand_model, input_size_for
+    from ..models.torch_port import (_strip_wrapper, params_to_jax,
+                                     port_state_dict)
+    model_name = str(hp["MODEL"])
+    classes = [str(c) for c in hp["classes"]]
+    resize = int(hp.get("resize") or input_size_for(model_name))
+    pretrained = bool(hp.get("pretrained", True))
+    sd = {k: v for k, v in ckpt["state_dict"].items()
+          if k.startswith("model.")}
+    model = get_namebrand_model(model_name, len(classes),
+                                pretrained=pretrained)
+    template = {k: torch.zeros(v.shape) for k, v in
+                model.state_dict().items()}
+    params, stats = params_to_jax(port_state_dict(
+        _strip_wrapper(sd), template, skip_head=False, on_missing="raise"))
+
+    hparams = dict(_jsonable(hp))
+    hparams.update(MODEL=model_name, classes=classes, resize=resize,
+                   img_norm=hp.get("img_norm"), seed=hp.get("seed"),
+                   model_id=hp.get("model_id"), pretrained=pretrained)
+    return params, stats, hparams
+
+
+def load_hparams(path: str) -> dict:
+    """The hparams alone, without building the model or porting weights
+    (the JAX package's load_hparams): a Lightning ``.ptl`` stops after
+    reading ``hyper_parameters``; the port's format parses the one file."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return dict(_jsonable(_ptl_hparams(_read_torch_zip(path))))
+    return load_checkpoint(path)[2]
 
 
 # ------------------------------------------------------- resume state ---

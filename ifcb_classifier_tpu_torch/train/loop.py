@@ -20,7 +20,9 @@ item citing the reference:
   * validation result files on best epochs                neuston_net.py:50-56
 and the JAX package's additions: chkpts/last.state every epoch and
 --resume (seed check; a resume of an early-stopped run is a no-op),
---class-norm, --accum, --balanced, --cache-images, --nan-check.
+--class-norm, --accum, --balanced, --cache-images, --nan-check,
+--weights (a torchvision state dict seeds the trunk, the heads stay fresh)
+and --plot (figures on best epochs, results/plots.py).
 
 Randomness differs from the JAX package by design (ROADMAP queue 3): the
 weights are initialised from a CPU torch generator seeded with --seed
@@ -45,7 +47,7 @@ import torch
 from ..data.datasets import get_trainval_datasets, parse_imgnorm
 from ..data.pipeline import HostLoader, prefetch
 from ..models import get_namebrand_model, input_size_for
-from ..models.torch_port import params_to_jax
+from ..models.torch_port import load_torch_weights, params_to_jax
 from ..ops.preprocess import preprocess_rgb
 from ..results.validation import (DEFAULT_SERIES, compute_validation_results,
                                   prf_scores, save_validation_results,
@@ -54,6 +56,7 @@ from ..utils.config import (dump_args_yml, hparams_dict, resolve_device,
                             resolve_dtype)
 from .checkpoint import (load_train_state, restore_trainstate_payload,
                          save_checkpoint, save_train_state)
+from .evaluate import evaluate_loader
 from .state import init_params, make_eval_step, make_optimizer, \
     make_train_step
 
@@ -64,10 +67,8 @@ __all__ = ["seed_everything", "EpochCSV", "reject_unported_train",
 UNPORTED_TRAIN_FLAGS = (
     ("mesh", (None, "auto", "1", "1x1"), "--mesh: parallelism, P10"),
     ("remat", (None, False), "--remat: torch.utils.checkpoint, P5b"),
-    ("plot_files", (None, []), "--plot: the plots slice, P6"),
     ("onnx", (None, False), "--onnx: export, P11"),
     ("export", (None, False), "--export: export, P11"),
-    ("weights", (None,), "--weights: torchvision state dicts, P6"),
     ("profile", (None, 0), "--profile: serving extras, P9"),
 )
 
@@ -163,6 +164,10 @@ def do_training(args, device=None):
         parse_imgnorm(args.img_norm)
     validate_result_files(getattr(args, "result_files", None) or [],
                           sample_epoch=0)
+    plot_files = getattr(args, "plot_files", None) or []
+    if plot_files:
+        from ..results.plots import save_training_plots, validate_plot_files
+        validate_plot_files(plot_files, which="train")
     os.makedirs(args.outdir, exist_ok=True)
     args.devices = [str(device)]
 
@@ -224,10 +229,15 @@ def do_training(args, device=None):
     model = get_namebrand_model(args.MODEL, len(args.classes),
                                 pretrained=args.pretrained, train=True)
     init_params(model, args.seed)
-    model = model.to(device=device, memory_format=torch.channels_last)
-    if args.pretrained:
+    if getattr(args, "weights", None):
+        model.load_state_dict(load_torch_weights(
+            args.weights, args.MODEL, model.state_dict()), strict=True)
+        print(f"Loaded ported weights from {args.weights}")
+    elif args.pretrained:
         print("NOTE: --pretrained requested but no --weights file given; "
-              "initializing randomly (no torchvision downloads here).")
+              "initializing randomly (no torchvision downloads here — give "
+              "a state_dict with --weights).")
+    model = model.to(device=device, memory_format=torch.channels_last)
     optimizer = make_optimizer(
         model.parameters(), getattr(args, "optimizer", "Adam"),
         getattr(args, "learning_rate", 0.001),
@@ -284,28 +294,15 @@ def do_training(args, device=None):
 
     def run_validation(epoch):
         """(sum of the batch mean losses, probs, true classes, paths)."""
-        losses, probs_l, classes_l, srcs = [], [], [], []
-        for bi, b in enumerate(prefetch(iter(val_loader))):
-            canvas, sizes, labels, mask = to_device(b)
-            flips = None
-            if flip_val:
-                val_gen.manual_seed(val_seed + epoch * 100003 + bi)
-                flips = _flip_mask(val_gen, canvas.shape[0], flip_x, flip_y,
-                                   device)
-            images = preprocess_rgb(canvas, sizes, out_size=args.resize,
-                                    mean=mean, std=std, flips=flips,
-                                    dtype=torch.float32)
-            loss, probs = eval_step(images, labels, mask)
-            n = int(b["mask"].sum())
-            losses.append(loss)
-            probs_l.append(probs[:n])
-            classes_l.append(b["labels"][:n])
-            srcs.extend(val_loader.items[i] for i in b["indices"][:n])
-            stats["val_steps"] += 1
-        losses = torch.stack(losses).cpu().numpy()
-        return (float(np.sum(losses, dtype=np.float64)),
-                torch.cat(probs_l).cpu().numpy(),
-                np.concatenate(classes_l), srcs)
+        def flips(bi, rows):
+            val_gen.manual_seed(val_seed + epoch * 100003 + bi)
+            return _flip_mask(val_gen, rows, flip_x, flip_y, device)
+
+        *out, batches = evaluate_loader(eval_step, val_loader, device,
+                                        args.resize, mean, std,
+                                        flips if flip_val else None)
+        stats["val_steps"] += batches
+        return out
 
     loop_start = start_epoch
     if (start_epoch > 0 and args.estop
@@ -402,6 +399,15 @@ def do_training(args, device=None):
                 outfile = os.path.join(args.outdir, fname).format(epoch=epoch)
                 os.makedirs(os.path.dirname(outfile) or ".", exist_ok=True)
                 save_validation_results(outfile, results)
+            # plots on best epochs (neuston_net.py:48,379,455 reserved it)
+            for fname, *plot_params in plot_files:
+                save_training_plots(
+                    os.path.join(args.outdir, fname).format(epoch=epoch),
+                    plot_params, epoch_rows=epoch_csv.rows,
+                    class_labels=args.classes, input_classes=input_classes,
+                    output_scores=outputs,
+                    counts_perclass=validation_dataset.count_perclass,
+                    model_id=args.model_id, epoch=epoch)
 
         save_train_state(last_state_path, model, optimizer, dict(
             epoch=epoch, best_val_loss=best_val_loss, best_epoch=best_epoch,

@@ -86,6 +86,6 @@ def test_rejects_other_files(tmp_path):
     bad.write_bytes(b"\x81\xa6format")  # truncated
     with pytest.raises(ValueError, match="not an ifcbnn checkpoint"):
         load_checkpoint(str(bad))
-    bad.write_bytes(b"PK\x03\x04rest")
-    with pytest.raises(NotImplementedError, match="Lightning"):
+    bad.write_bytes(b"PK\x03\x04rest")  # a zip that is no Lightning file
+    with pytest.raises(ValueError, match="no torch checkpoint"):
         load_checkpoint(str(bad))

@@ -31,10 +31,11 @@ def test_port_imports_no_jax():
     n, bad = first.split(" ", 1)
     assert int(n) >= 25, proc.stdout  # every module was found and imported
     assert bad.strip() == "[]", proc.stdout
-    # the TRAIN and int8 slices' modules among them
+    # the TRAIN, int8 and VAL/utility slices' modules among them
     for mod in ("data.datasets", "data.pipeline", "ops.preprocess",
                 "models.layers", "models.inception", "train.state",
                 "train.checkpoint", "train.loop", "results.validation",
                 "utils.config", "cli", "ops.qconv", "models.quant",
-                "models.quant_resident", "models.quant_graph", "export"):
+                "models.quant_resident", "models.quant_graph", "export",
+                "train.evaluate", "results.plots", "util_cli"):
         assert "ifcb_classifier_tpu_torch." + mod in names.split(), mod

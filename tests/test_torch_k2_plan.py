@@ -4,7 +4,8 @@ tile's columns, canvas buffers, staged window and shared memory per rung),
 ``k2_tile_walk`` (the kernel's tiles, in its order) and ``k2_tiles_plain``
 (the output computed tile by tile in the kernel's pass order).
 
-For every canvas rung at r=299 and both output types: the windows that
+For every canvas rung at r=299 (TRAIN, RUN, VAL) and r=224
+(CALC_IMG_NORM --resize 224) and both output types: the windows that
 the tap tables of ``tap_tables_plain`` need fit the rows and bytes the
 plan stages, for every image size from 1 to S on both axes (so the
 kernel's caps never bind); the tiles cover each output (b, i, j) exactly
@@ -26,26 +27,29 @@ from ifcb_classifier_tpu_torch.ops.preprocess import (
     k2_tiles_plain, preprocess_rgb_plain, tap_tables_plain)
 
 R = 299
+R_224 = 224
 RUNGS = (64, 128, 256, 512, 1024)
 MEAN = (0.667, 0.6, 0.55)
 STD = (0.161, 0.2, 0.25)
 TOL, TOL_NORM = 1e-5, 1e-4
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-RUNG_CASES = [pytest.param(S, name, id=f"S{S}-{name}") for S in RUNGS
-              for name in DTYPES]
+RUNG_CASES = ([pytest.param(S, name, R, id=f"S{S}-{name}") for S in RUNGS
+               for name in DTYPES]
+              + [pytest.param(S, name, R_224, id=f"S{S}-{name}-r224")
+                 for S in RUNGS for name in DTYPES])
 
 
-@pytest.mark.parametrize("S,dtype", RUNG_CASES)
-def test_tile_windows_fit_the_plan(S, dtype):
+@pytest.mark.parametrize("S,dtype,r", RUNG_CASES)
+def test_tile_windows_fit_the_plan(S, dtype, r):
     """Every tile's taps lie inside the canvas rows and row bytes it
     stages, and those fit the plan's window, for h and w from 1 to S."""
-    plan = k2_plan(S, R, DTYPES[dtype])
+    plan = k2_plan(S, r, DTYPES[dtype])
     sides = np.arange(1, S + 1, dtype=np.int32)
     sizes = torch.from_numpy(np.stack([sides, sides[::-1].copy()], axis=1))
-    lo, n, _ = tap_tables_plain(sizes, S, R)
+    lo, n, _ = tap_tables_plain(sizes, S, r)
     lo, n = lo.numpy(), n.numpy()
     ends = lo + n
-    for t in k2_tile_walk(sizes, S, R, plan["cols"]):
+    for t in k2_tile_walk(sizes, S, r, plan["cols"]):
         b = t["b"]
         assert t["nrows"] <= plan["window_rows"]
         assert t["wb"] <= plan["window_bytes"] and t["wb"] % 16 == 0
@@ -60,31 +64,31 @@ def test_tile_windows_fit_the_plan(S, dtype):
         assert (3 * ends[b, 1, cs][taps] <= t["xb0"] + t["wb"]).all()
 
 
-@pytest.mark.parametrize("S,dtype", RUNG_CASES)
-def test_tiles_cover_the_output_once(S, dtype):
+@pytest.mark.parametrize("S,dtype,r", RUNG_CASES)
+def test_tiles_cover_the_output_once(S, dtype, r):
     """Each (b, i, j) of the output is written by exactly one tile, with
     each flip combination, for images one tile wide (small) and several
     tiles wide (filling the canvas)."""
-    plan = k2_plan(S, R, DTYPES[dtype])
+    plan = k2_plan(S, r, DTYPES[dtype])
     flips = [(0, 0), (1, 0), (0, 1), (1, 1)] * 2
     sizes = torch.tensor([(S, S)] * 4 + [(S, 8)] * 4, dtype=torch.int32)
-    hits = torch.zeros((len(flips), R, R), dtype=torch.int32)
-    for t in k2_tile_walk(sizes, S, R, plan["cols"]):
-        rows, cols = k2_tile_dest(t, R, *flips[t["b"]])
+    hits = torch.zeros((len(flips), r, r), dtype=torch.int32)
+    for t in k2_tile_walk(sizes, S, r, plan["cols"]):
+        rows, cols = k2_tile_dest(t, r, *flips[t["b"]])
         hits[t["b"], rows[:, None], cols[None, :]] += 1
     assert bool((hits == 1).all())
 
 
-@pytest.mark.parametrize("S,dtype", RUNG_CASES)
-def test_plan_fits_the_card(S, dtype):
+@pytest.mark.parametrize("S,dtype,r", RUNG_CASES)
+def test_plan_fits_the_card(S, dtype, r):
     """One block's shared memory within the card's limit per block, and
     room for two blocks an SM in bf16 (the plan keeps room for
     K2_MIN_BLOCKS in both types)."""
-    plan = k2_plan(S, R, DTYPES[dtype])
+    plan = k2_plan(S, r, DTYPES[dtype])
     assert plan["smem"] <= SMEM_PER_BLOCK
     assert plan["blocks_by_smem"] >= (2 if dtype == "bf16" else 1)
     assert plan["blocks_by_smem"] >= K2_MIN_BLOCKS
-    assert 1 <= plan["cols"] <= R and plan["ncol"] * plan["cols"] >= R
+    assert 1 <= plan["cols"] <= r and plan["ncol"] * plan["cols"] >= r
     assert plan["nbuf"] in (1, 2)
 
 
@@ -127,17 +131,18 @@ def test_tiles_plain_matches_plain(S, r, cols, norm, flip):
 
 def test_card_plan_is_the_mirror():
     """On a CUDA card only: the plan that K2's C source computes (reported
-    by ``k2_resize_shape``) is ``k2_plan``'s at every rung and output type,
-    so the tiles the tests above walk are the kernel's (chip_smoke.py
-    phase 2 checks the same)."""
+    by ``k2_resize_shape``) is ``k2_plan``'s at every rung, output type and
+    both output sizes, so the tiles the tests above walk are the kernel's
+    (chip_smoke.py phase 2 checks the same)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K2's C plan is built with nvcc")
     from ifcb_classifier_tpu_torch.ops.preprocess import k2_resize_shape
     keys = ("rows", "cols", "nbuf", "window_rows", "window_bytes", "smem",
             "threads")
-    for S in RUNGS:
-        for name, dtype in DTYPES.items():
-            card = k2_resize_shape(128, S, R, dtype)
-            plan = k2_plan(S, R, dtype)
-            assert ({k: card[k] for k in keys}
-                    == {k: plan[k] for k in keys}), (S, name)
+    for r in (R, R_224):
+        for S in RUNGS:
+            for name, dtype in DTYPES.items():
+                card = k2_resize_shape(128, S, r, dtype)
+                plan = k2_plan(S, r, dtype)
+                assert ({k: card[k] for k in keys}
+                        == {k: plan[k] for k in keys}), (S, name, r)

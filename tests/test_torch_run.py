@@ -8,7 +8,8 @@ batch on a rung, and one ROI over the 1024 ceiling that takes the
 shrink-to-fit path), schema 1 (stitched multi-ROI triggers), an empty bin
 and a bin whose .roi file is truncated.
 
-Class lists, roi numbers and the error report must be identical. Scores
+Class lists, roi numbers, the error report and the --plot files (one
+figure per bin and an aggregate one) must be identical. Scores
 agree within 1e-5: the two packages run the same f32 arithmetic in other
 orders (preprocess ≈ 1e-6, logits ≈ 1e-5 at this size); the measured
 score difference is 8.3e-7.
@@ -70,6 +71,7 @@ def _args(src, ckpt, outdir, outfiles):
         batch_size=BATCH, loaders=1, src_type="bin", outdir=outdir,
         outfile=list(outfiles), filter=None, clobber=False, gobig=False,
         summary="summary.json",
+        plot_files=[["plots/{BIN_ID}.svg", "counts"], ["agg.svg"]],
         cmd_timestamp="2026-08-16T00:00:00+00:00")
 
 
@@ -161,12 +163,21 @@ def test_summary_matches(runs):
         assert res["port"][key] == res["jax"][key], key
 
 
+def test_same_plot_files(runs):
+    """--plot: one figure per classified bin for a bin-patterned FNAME,
+    one aggregate figure for a plain one, as the JAX package writes."""
+    names = {}
+    for name, (outdir, _) in runs.items():
+        names[name] = sorted(os.listdir(os.path.join(outdir, "plots")))
+        assert os.path.getsize(os.path.join(outdir, "agg.svg")) > 0
+    assert names["port"] == names["jax"] == sorted([V2 + ".svg",
+                                                   V1 + ".svg"])
+
+
 def test_unported_flags_raise(ckpt, bins, tmp_path):
     from ifcb_classifier_tpu_torch.infer.runner import do_run
     for extra, item in (({"gobig": True}, "P9"), ({"watch": 5.0}, "P9"),
-                        ({"src_type": "img"}, "P6"),
-                        ({"mesh": "2x1"}, "P10"),
-                        ({"plot_files": [["a.png"]]}, "P6")):
+                        ({"mesh": "2x1"}, "P10")):
         args = _args(bins, ckpt, str(tmp_path), ["{BIN_ID}.json"])
         vars(args).update(extra)
         with pytest.raises(NotImplementedError, match=item):

@@ -6,7 +6,9 @@ same parameters as the uninterrupted one, bit for bit (same process, same
 CPU kernels, generator states carried in last.state); the checkpoints
 cross-load both ways with the JAX package (eval logits within 1e-4, the
 inception tolerance of test_torch_inception.py); the port's RUN engine
-serves the trained model; flags of later slices raise.
+serves the trained model; --weights (a torchvision .pth from PORT_WEIGHTS)
+seeds the trunk and --plot draws the best epoch; flags of later slices
+raise.
 """
 
 import os
@@ -178,10 +180,53 @@ def test_run_serves_the_trained_model(runs):
     assert np.abs(probs.sum(axis=1) - 1).max() < 1e-5
 
 
+@pytest.fixture(scope="module")
+def seeded(runs):
+    """One epoch at learning rate 0 from the trunk of the 2-epoch run's
+    model (PORT_WEIGHTS of its .ptl into a torchvision .pth), with a plot
+    on the best epoch: {outdir, the .pth, stdout}."""
+    import io
+    from contextlib import redirect_stdout
+
+    from ifcb_classifier_tpu_torch.util_cli import main_cli as util_cli
+    root = runs["root"]
+    pth = str(root / "trunk.pth")
+    util_cli(["PORT_WEIGHTS", os.path.join(runs["full"], "t1.ptl"), "-o",
+              pth])
+    out = str(root / "seeded")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        _train(runs["src"], out, "--weights", pth, "--learning-rate", "0",
+               "--plot", "plots/p{epoch}.png", "curves", "confusion",
+               emax=1)
+    return dict(out=out, pth=pth, stdout=buf.getvalue())
+
+
+@pytest.mark.parametrize("flag", ["--plot", "--weights"])
+def test_flags_of_this_slice_are_served(seeded, flag):
+    """--plot writes the figure of the best epoch; --weights seeds the
+    trunk (with Adam at learning rate 0 the trained parameters stay the
+    file's), the heads stay fresh (not the file's)."""
+    from ifcb_classifier_tpu_torch.models.torch_port import (
+        load_state_dict_file, params_from_jax)
+    from ifcb_classifier_tpu_torch.train.checkpoint import load_checkpoint
+    out = seeded["out"]
+    if flag == "--plot":
+        assert os.path.getsize(os.path.join(out, "plots", "p0.png")) > 0
+        return
+    assert "Loaded ported weights from " + seeded["pth"] in seeded["stdout"]
+    sd = params_from_jax(*load_checkpoint(os.path.join(out, "t1.ptl"))[:2])
+    src = load_state_dict_file(seeded["pth"])
+    for k, v in sd.items():
+        if k.startswith(("fc.", "AuxLogits.fc.")):
+            assert not np.array_equal(v.numpy(), src[k]), k
+        elif not k.endswith(("running_mean", "running_var")):
+            assert np.array_equal(v.numpy(), src[k]), k
+
+
 @pytest.mark.parametrize("argv", [
     ["--remat"], ["--mesh", "2"], ["--precision", "int8"],
-    ["TRAIN:--plot", "p.png", "curves"], ["TRAIN:--onnx"],
-    ["TRAIN:--export"], ["TRAIN:--weights", "w.pth"],
+    ["TRAIN:--onnx"], ["TRAIN:--export"],
     ["TRAIN:--profile", "2"], ["MODEL:resnet18"]])
 def test_flags_of_later_slices_raise(argv, tmp_path):
     """Each raises before anything is written: NotImplementedError naming
